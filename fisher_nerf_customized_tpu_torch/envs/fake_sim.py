@@ -1,0 +1,264 @@
+"""Hermetic simulator: procedural box-room scenes with analytic raycasting.
+
+`BoxScene` describes a room (or a grid of rooms) with box obstacles;
+`FakeSim` renders ground-truth RGB-D by per-pixel AABB raycasting on the
+device and steps the discrete action space (1 fwd / 2 left / 3 right)
+with collision checks, so the SLAM object can be driven with no scene
+data.  Observations stay on the device as torch tensors.
+
+Conventions: world y is up; cameras are +z forward / +y down (CV frame);
+depth images are z-depth along the camera axis.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops.camera import Camera
+from ..utils.geometry import compute_next_campos
+
+
+class _Boxes(NamedTuple):
+    lo: np.ndarray          # (B, 3)
+    hi: np.ndarray          # (B, 3)
+    inward: np.ndarray      # (B,) bool: True = room shell (hit from inside)
+    color_seed: np.ndarray  # (B,) float
+
+
+@dataclass
+class BoxScene:
+    """Room shell + box obstacles.  Sizes in meters."""
+    room_lo: tuple = (-4.0, 0.0, -4.0)
+    room_hi: tuple = (4.0, 2.5, 4.0)
+    obstacles: list = field(default_factory=list)   # list of (lo, hi) tuples
+    agent_radius: float = 0.18
+
+    @staticmethod
+    def default(seed: int = 0, n_obstacles: int = 6,
+                room: float = 4.0) -> "BoxScene":
+        rng = np.random.default_rng(seed)
+        obstacles = []
+        for _ in range(n_obstacles):
+            cx, cz = rng.uniform(-room + 1.2, room - 1.2, 2)
+            sx, sz = rng.uniform(0.25, 0.7, 2)
+            sy = rng.uniform(0.8, 2.2)
+            if abs(cx) < 1.2 and abs(cz) < 1.2:
+                continue   # keep the spawn area clear
+            obstacles.append(((cx - sx, 0.0, cz - sz), (cx + sx, sy, cz + sz)))
+        return BoxScene(room_lo=(-room, 0.0, -room), room_hi=(room, 2.5, room),
+                        obstacles=obstacles)
+
+    @staticmethod
+    def multi_room(seed: int = 0, rooms_x: int = 3, rooms_z: int = 3,
+                   room: float = 4.0, door: float = 1.0,
+                   wall_t: float = 0.12, height: float = 2.5,
+                   clutter_per_room: int = 2) -> "BoxScene":
+        """A rooms_x x rooms_z grid of `room`-sized rooms separated by
+        interior walls with one doorway per shared edge, plus per-room
+        clutter boxes.  The agent spawns at the origin, the center of the
+        middle room."""
+        rng = np.random.default_rng(seed)
+        wx = rooms_x * room / 2.0
+        wz = rooms_z * room / 2.0
+        # shift so that one room's center is the origin (spawn point)
+        ox = (room / 2.0) if rooms_x % 2 == 0 else 0.0
+        oz = (room / 2.0) if rooms_z % 2 == 0 else 0.0
+        obstacles = []
+
+        # interior walls normal to x: one door per room cell they border
+        for i in range(1, rooms_x):
+            x = -wx + i * room + ox
+            for j in range(rooms_z):
+                z0, z1 = -wz + j * room + oz, -wz + (j + 1) * room + oz
+                dz = rng.uniform(z0 + 0.6, z1 - 0.6 - door)
+                if dz - z0 > 0.05:
+                    obstacles.append(((x - wall_t / 2, 0.0, z0),
+                                      (x + wall_t / 2, height, dz)))
+                if z1 - (dz + door) > 0.05:
+                    obstacles.append(((x - wall_t / 2, 0.0, dz + door),
+                                      (x + wall_t / 2, height, z1)))
+        # interior walls normal to z
+        for j in range(1, rooms_z):
+            z = -wz + j * room + oz
+            for i in range(rooms_x):
+                x0, x1 = -wx + i * room + ox, -wx + (i + 1) * room + ox
+                dx = rng.uniform(x0 + 0.6, x1 - 0.6 - door)
+                if dx - x0 > 0.05:
+                    obstacles.append(((x0, 0.0, z - wall_t / 2),
+                                      (dx, height, z + wall_t / 2)))
+                if x1 - (dx + door) > 0.05:
+                    obstacles.append(((dx + door, 0.0, z - wall_t / 2),
+                                      (x1, height, z + wall_t / 2)))
+        # per-room clutter (tall boxes + half-height occluders), kept off
+        # walls/doorways by a margin and out of the spawn room's center
+        for i in range(rooms_x):
+            for j in range(rooms_z):
+                cx0 = -wx + i * room + ox + 1.0
+                cz0 = -wz + j * room + oz + 1.0
+                for _ in range(clutter_per_room):
+                    cx = rng.uniform(cx0, cx0 + room - 2.0)
+                    cz = rng.uniform(cz0, cz0 + room - 2.0)
+                    if abs(cx) < 1.0 and abs(cz) < 1.0:
+                        continue                    # spawn area clear
+                    sx, sz = rng.uniform(0.2, 0.55, 2)
+                    sy = rng.uniform(0.5, 1.1) if rng.uniform() < 0.5 \
+                        else rng.uniform(1.4, 2.2)
+                    obstacles.append(((cx - sx, 0.0, cz - sz),
+                                      (cx + sx, sy, cz + sz)))
+        return BoxScene(room_lo=(-wx + ox, 0.0, -wz + oz),
+                        room_hi=(wx + ox, height, wz + oz),
+                        obstacles=obstacles)
+
+    def boxes(self) -> _Boxes:
+        los = [np.asarray(self.room_lo, np.float32)]
+        his = [np.asarray(self.room_hi, np.float32)]
+        inward = [True]
+        for lo, hi in self.obstacles:
+            los.append(np.asarray(lo, np.float32))
+            his.append(np.asarray(hi, np.float32))
+            inward.append(False)
+        seeds = np.arange(len(los), dtype=np.float32)
+        return _Boxes(lo=np.stack(los), hi=np.stack(his),
+                      inward=np.asarray(inward), color_seed=seeds)
+
+    def is_navigable(self, pos) -> bool:
+        """xz position reachable by the agent (inside room, off obstacles)."""
+        p = np.asarray(pos, np.float32).reshape(-1)
+        x, z = float(p[0]), float(p[-1])
+        r = self.agent_radius
+        lo, hi = self.room_lo, self.room_hi
+        if not (lo[0] + r <= x <= hi[0] - r and lo[2] + r <= z <= hi[2] - r):
+            return False
+        for blo, bhi in self.obstacles:
+            if blo[0] - r <= x <= bhi[0] + r and blo[2] - r <= z <= bhi[2] + r:
+                return False
+        return True
+
+
+def _raycast_device(lo, hi, inward, seeds, c2w, camera: Camera):
+    """Per-pixel nearest-hit AABB raycast in plain torch on the tensors'
+    device.  lo, hi (B, 3), inward (B,) bool, seeds (B,), c2w (4, 4).
+    Returns rgb (H, W, 3), z-depth (H, W) and the hit box id (H, W).
+
+    The checker color flips across faces that lie on the 0.5 m grid (the
+    room shell), where it is decided by the last bit of the hit point.  So
+    that the frames agree with the JAX package's, the arithmetic follows
+    its compiled form: pixel offsets times the f32 reciprocal of the focal
+    length, the ray direction as a left-to-right sum, and the hit point as
+    one fused multiply-add (emulated in f64, exact but for a rare double
+    rounding)."""
+    dev = lo.device
+    h, w = camera.height, camera.width
+    f32 = torch.float32
+    ys = (torch.arange(h, dtype=f32, device=dev) - camera.cy) \
+        * torch.tensor(1.0 / camera.fy, dtype=f32)
+    xs = (torch.arange(w, dtype=f32, device=dev) - camera.cx) \
+        * torch.tensor(1.0 / camera.fx, dtype=f32)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    R = c2w[:3, :3]
+    dirs_w = (gx[..., None] * R[:, 0] + gy[..., None] * R[:, 1]) + R[:, 2]
+    origin = c2w[:3, 3]
+
+    safe = torch.where(torch.abs(dirs_w) < 1e-9,
+                       torch.full_like(dirs_w, 1e-9), dirs_w)
+    inv_d = 1.0 / safe
+    t0 = (lo[:, None, None, :] - origin) * inv_d[None]
+    t1 = (hi[:, None, None, :] - origin) * inv_d[None]
+    tmin = torch.minimum(t0, t1).amax(dim=-1)
+    tmax = torch.maximum(t0, t1).amin(dim=-1)
+    t_hit = torch.where(inward[:, None, None], tmax, tmin)
+    hit_ok = (tmax >= torch.clamp(tmin, min=0.0)) & (t_hit > 1e-4)
+    t_hit = torch.where(hit_ok, t_hit, torch.full_like(t_hit, float("inf")))
+    best = torch.argmin(t_hit, dim=0)                        # first minimum
+    t_best = t_hit.amin(dim=0)
+    t_best = torch.where(torch.isfinite(t_best), t_best,
+                         torch.zeros_like(t_best))
+
+    hit_pt = (origin.double() + dirs_w.double()
+              * t_best[..., None].double()).float()
+    # rays are scaled so dirs_cam.z == 1, hence t IS the camera z-depth
+    seed = seeds[best]
+    checker = torch.remainder(torch.floor(hit_pt[..., 0] / 0.5)
+                              + torch.floor(hit_pt[..., 1] / 0.5)
+                              + torch.floor(hit_pt[..., 2] / 0.5), 2.0)
+    base_r = 0.25 + 0.5 * torch.abs(torch.sin(seed * 2.1 + 1.0))
+    base_g = 0.25 + 0.5 * torch.abs(torch.sin(seed * 3.7 + 2.0))
+    base_b = 0.25 + 0.5 * torch.abs(torch.sin(seed * 5.3 + 3.0))
+    shade = 0.75 + 0.25 * checker
+    stripes = 0.85 + 0.15 * torch.sin(hit_pt[..., 0] * 7.0) * torch.sin(
+        hit_pt[..., 2] * 7.0)
+    rgb = torch.stack([base_r * shade * stripes, base_g * shade,
+                       base_b * (1.25 - 0.25 * checker)], dim=-1)
+    return torch.clamp(rgb, 0.0, 1.0), t_best, best
+
+
+class FakeSim:
+    """Embodied sim over a BoxScene: reset / step / get_observations /
+    set_pose / render_at, with actions 1 = fwd, 2 = left, 3 = right.
+    Observations are dict(rgb (H, W, 3), depth (H, W)) tensors on
+    `device` plus the host c2w."""
+
+    def __init__(self, scene: BoxScene, camera: Camera,
+                 forward_step: float = 0.065, turn_angle: float = 10.0,
+                 cam_height: float = 1.25, device="cuda"):
+        self.scene = scene
+        self.camera = camera
+        self.forward_step = float(forward_step)
+        self.turn_angle = float(turn_angle)
+        self.cam_height = float(cam_height)
+        self.device = torch.device(device)
+        b = scene.boxes()
+        self._boxes = (torch.as_tensor(b.lo, device=self.device),
+                       torch.as_tensor(b.hi, device=self.device),
+                       torch.as_tensor(b.inward, device=self.device),
+                       torch.as_tensor(b.color_seed, device=self.device))
+        self.c2w = np.eye(4, dtype=np.float32)
+        self.collided_last = False
+        self.reset()
+
+    def _raycast(self, c2w):
+        c2w_t = torch.as_tensor(np.asarray(c2w, np.float32),
+                                device=self.device)
+        return _raycast_device(*self._boxes, c2w_t, self.camera)
+
+    def reset(self, start_xz=(0.0, 0.0), yaw: float = 0.0):
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        # CV camera: x right, y down, z forward: flip x and y of the y-up frame
+        R = R @ np.diag([-1.0, -1.0, 1.0]).astype(np.float32)
+        self.c2w = np.eye(4, dtype=np.float32)
+        self.c2w[:3, :3] = R
+        self.c2w[:3, 3] = [start_xz[0], self.cam_height, start_xz[1]]
+        self.collided_last = False
+        return self.get_observations()
+
+    def get_observations(self):
+        rgb, depth, _hit = self._raycast(self.c2w)
+        return dict(rgb=rgb, depth=depth, c2w=self.c2w.copy())
+
+    def step(self, action_id: int):
+        next_c2w = compute_next_campos(self.c2w, int(action_id),
+                                       self.forward_step, self.turn_angle)
+        collided = False
+        if action_id == 1:
+            nxt = next_c2w[:3, 3]
+            if not self.scene.is_navigable((nxt[0], 0.0, nxt[2])):
+                collided = True
+                next_c2w = self.c2w      # blocked: stay (habitat-style stop)
+        self.c2w = np.asarray(next_c2w, np.float32)
+        self.collided_last = collided
+        return self.get_observations()
+
+    def set_pose(self, c2w):
+        self.c2w = np.asarray(c2w, np.float32)
+
+    def render_at(self, c2w):
+        """Ground-truth (rgb, depth) tensors at a c2w pose."""
+        rgb, depth, _hit = self._raycast(c2w)
+        return rgb, depth
+
+    def is_navigable(self, pos) -> bool:
+        return self.scene.is_navigable(pos)

@@ -1,0 +1,124 @@
+"""Fixed-capacity Gaussian map state.
+
+Slots [0, n_active) are live (compacted invariant) and the rest are
+free; `add_gaussians` writes masked candidates into the free tail and
+drops what does not fit (the SLAM object grows capacity when a drop is
+reported).  `state_from_numpy` / `state_to_numpy` carry a map between
+this port and the JAX package (whose GaussianSLAM.save writes the same
+arrays).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+PARAM_KEYS = ("means3D", "rgb_colors", "unnorm_rotations", "logit_opacities",
+              "log_scales")
+
+
+class GaussianState(NamedTuple):
+    means3D: torch.Tensor           # (C, 3) world frame
+    rgb_colors: torch.Tensor        # (C, 3)
+    unnorm_rotations: torch.Tensor  # (C, 4) wxyz
+    logit_opacities: torch.Tensor   # (C, 1)
+    log_scales: torch.Tensor        # (C, 3)
+    timestep: torch.Tensor          # (C,)  frame index each slot was born
+    n_active: torch.Tensor          # ()    int32, on the state's device
+
+    @property
+    def capacity(self) -> int:
+        return self.means3D.shape[0]
+
+    @property
+    def active(self) -> torch.Tensor:
+        return torch.arange(self.capacity,
+                            device=self.means3D.device) < self.n_active
+
+    def params(self) -> dict:
+        return {k: getattr(self, k) for k in PARAM_KEYS}
+
+    def replace_params(self, params: dict) -> "GaussianState":
+        return self._replace(**params)
+
+
+def empty_state(capacity: int, device="cuda") -> GaussianState:
+    rot = torch.zeros(capacity, 4, device=device)
+    rot[:, 0] = 1.0
+    return GaussianState(
+        means3D=torch.zeros(capacity, 3, device=device),
+        rgb_colors=torch.zeros(capacity, 3, device=device),
+        unnorm_rotations=rot,
+        logit_opacities=torch.zeros(capacity, 1, device=device),
+        log_scales=torch.full((capacity, 3), -10.0, device=device),
+        timestep=torch.zeros(capacity, device=device),
+        n_active=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def grow_state(state: GaussianState, new_capacity: int) -> GaussianState:
+    """Capacity growth: append empty slots."""
+    pad = new_capacity - state.capacity
+    if pad < 0:
+        raise ValueError(f"cannot shrink capacity {state.capacity} -> "
+                         f"{new_capacity}")
+    fresh = empty_state(pad, device=state.means3D.device)
+    cat = {k: torch.cat([getattr(state, k), getattr(fresh, k)])
+           for k in PARAM_KEYS + ("timestep",)}
+    return state._replace(**cat)
+
+
+def add_gaussians(state: GaussianState, new_params: dict, mask,
+                  time_idx) -> tuple[GaussianState, torch.Tensor]:
+    """Write masked candidate Gaussians into the free tail.
+
+    new_params: dict of (M, d) candidate arrays (keys = PARAM_KEYS);
+    mask: (M,) bool.  Candidates past the capacity are dropped: they are
+    masked out rather than sent to an out-of-range index (the JAX package
+    scatters them to index `cap` with mode="drop").  Returns
+    (new_state, dropped_count)."""
+    cap = state.capacity
+    rank = torch.cumsum(mask.to(torch.int32), dim=0) - 1
+    dest = state.n_active + rank
+    in_range = mask & (dest < cap)
+    sel = dest[in_range].long()
+    updates = {}
+    for k in PARAM_KEYS:
+        arr = getattr(state, k).clone()
+        arr[sel] = new_params[k][in_range].to(arr.dtype)
+        updates[k] = arr
+    ts = state.timestep.clone()
+    ts[sel] = float(time_idx)
+    n_added = in_range.sum(dtype=torch.int32)
+    dropped = mask.sum(dtype=torch.int32) - n_added
+    new_state = state._replace(timestep=ts, n_active=state.n_active + n_added,
+                               **updates)
+    return new_state, dropped
+
+
+def state_from_numpy(d: dict, capacity: int, device="cuda") -> GaussianState:
+    """A GaussianState from numpy arrays (PARAM_KEYS + timestep +
+    n_active, as the JAX package's GaussianState or its checkpoint npz
+    holds them).  Only the first n_active rows are read; the rest of the
+    capacity is empty.  Inputs of any float type are cast to float32."""
+    n = int(np.asarray(d["n_active"]))
+    if n > capacity:
+        raise ValueError(f"{n} active Gaussians exceed capacity {capacity}")
+    state = empty_state(capacity, device=device)
+    upd = {}
+    for k in PARAM_KEYS + ("timestep",):
+        arr = getattr(state, k).clone()
+        src = np.asarray(d[k], np.float32)[:n]
+        arr[:n] = torch.from_numpy(src.reshape(arr[:n].shape)).to(device)
+        upd[k] = arr
+    return state._replace(n_active=torch.tensor(n, dtype=torch.int32,
+                                                device=device), **upd)
+
+
+def state_to_numpy(state: GaussianState) -> dict:
+    """numpy float32 arrays of every field (full capacity) + n_active."""
+    out = {k: getattr(state, k).detach().cpu().numpy()
+           for k in PARAM_KEYS + ("timestep",)}
+    out["n_active"] = np.int32(int(state.n_active))
+    return out

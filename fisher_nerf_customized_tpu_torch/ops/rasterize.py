@@ -1,0 +1,112 @@
+"""Tile-based 3DGS forward rasterizer (forward only).
+
+preprocess (ops/projection.py) -> static-shape tile binning
+(ops/binning.py) -> one packed row gather -> the K1 blend
+(ops/cuda_blend.py: the CUDA kernel on the card, its plain twin on the
+CPU).  The blend stops a tile once every pixel's transmittance is below
+1e-4, as the JAX package's Pallas forward does; its XLA blend never
+stops, so the two differ by at most that tail.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .binning import tile_bin
+from .camera import Camera
+from .cuda_blend import cuda_blend
+from .projection import preprocess
+
+
+class RenderSettings(NamedTuple):
+    tile_size: int = 16
+    max_per_tile: int = 512
+    chunk: int = 64
+    max_depth: float = 15.0   # median-depth fallback
+
+
+def pack_blend_features(prep, opacities, colors):
+    """Per-Gaussian packed feature rows for the blend:
+    [mean2d (2), conic (3), opacity (1), depth (1), colors (C)]."""
+    return torch.cat([prep.mean2d, prep.conic, opacities[:, None],
+                      prep.depth[:, None], colors], dim=-1)
+
+
+def tile_pixel_coords(ntx: int, nty: int, ts: int, device=None):
+    """Pixel coordinates per tile: two (T, P) float tensors."""
+    tile_ids = torch.arange(ntx * nty, device=device)
+    tile_x0 = (tile_ids % ntx) * ts
+    tile_y0 = torch.div(tile_ids, ntx, rounding_mode="floor") * ts
+    lx = torch.arange(ts, dtype=torch.float32, device=device).repeat(ts)
+    ly = torch.arange(ts, dtype=torch.float32,
+                      device=device).repeat_interleave(ts)
+    pix_x = tile_x0[:, None].float() + lx[None, :]
+    pix_y = tile_y0[:, None].float() + ly[None, :]
+    return pix_x, pix_y
+
+
+def _tiles_to_image(buf, nty, ntx, ts, height, width):
+    """(T, P, ...) tile-pixel buffer -> (H, W, ...) image (crops padding)."""
+    trailing = buf.shape[2:]
+    img = buf.reshape((nty, ntx, ts, ts) + trailing)
+    img = img.movedim(2, 1).reshape((nty * ts, ntx * ts) + trailing)
+    return img[:height, :width]
+
+
+def blend_kernel_inputs(st: RenderSettings, prep, bins, opacities, colors):
+    """Pack binned Gaussians for the K1 kernel: one row gather of the
+    blend features with the slot-valid flag inserted at column 7.
+    Returns (packed (T, K, 8+C), pix_xy (T, 2, P), nvalid (T,))."""
+    rows = pack_blend_features(prep, opacities, colors)[bins.table]
+    val = bins.slot_valid[..., None].to(rows.dtype)
+    packed = torch.cat([rows[..., :7], val, rows[..., 7:]], dim=-1)
+    pix_x, pix_y = tile_pixel_coords(bins.n_tiles_x, bins.n_tiles_y,
+                                     st.tile_size, device=packed.device)
+    pix_xy = torch.stack([pix_x, pix_y], dim=1).contiguous()
+    nvalid = bins.slot_valid.sum(dim=-1, dtype=torch.int32)
+    return packed, pix_xy, nvalid
+
+
+def _blend(camera: Camera, st: RenderSettings, prep, bins, opacities, colors,
+           bg):
+    packed, pix_xy, nvalid = blend_kernel_inputs(st, prep, bins, opacities,
+                                                 colors)
+    color, t_final, med = cuda_blend(packed, pix_xy, nvalid, st.chunk,
+                                     st.max_depth)
+    if bg is None:
+        bg = torch.zeros(colors.shape[-1], device=packed.device)
+    out = color + t_final[:, :, None] * bg[None, None, :]
+    ts, nty, ntx = st.tile_size, bins.n_tiles_y, bins.n_tiles_x
+    return dict(
+        color=_tiles_to_image(out, nty, ntx, ts, camera.height, camera.width),
+        depth=_tiles_to_image(med, nty, ntx, ts, camera.height, camera.width),
+        final_t=_tiles_to_image(t_final, nty, ntx, ts, camera.height,
+                                camera.width),
+        radii=prep.radius, overflow=bins.overflow)
+
+
+def render_prebinned(camera: Camera, means_cam, scales, quats, opacities,
+                     colors, bins, bg=None,
+                     settings: RenderSettings = RenderSettings()):
+    """Render against a frozen tile-binning table."""
+    prep = preprocess(means_cam, scales, quats, camera)
+    return _blend(camera, settings, prep, bins, opacities, colors, bg)
+
+
+def render(camera: Camera, means_cam, scales, quats, opacities, colors,
+           bg=None, active=None, settings: RenderSettings = RenderSettings()):
+    """Render camera-frame Gaussians to an (H, W, C) image.
+
+    means_cam (N, 3) camera-frame centers; scales (N, 3) stddevs; quats
+    (N, 4) wxyz; opacities (N,) post-sigmoid; colors (N, C) per-Gaussian
+    channels; bg (C,) background (default zeros); active (N,) slot mask.
+
+    Returns dict with color (H, W, C) blended channels + T*bg, depth
+    (H, W) median depth, final_t (H, W), radii (N,), overflow () count of
+    Gaussian-tile entries truncated by the per-tile capacity."""
+    st = settings
+    prep = preprocess(means_cam, scales, quats, camera, active=active)
+    bins = tile_bin(prep.mean2d, prep.radius, prep.depth, prep.valid,
+                    camera.width, camera.height, st.tile_size, st.max_per_tile)
+    return _blend(camera, st, prep, bins, opacities, colors, bg)
