@@ -5,26 +5,35 @@ on one NVIDIA GPU.  Run from the repository root:
     python3 chip_smoke.py
 
 Phases, one line each:
-  build          compile every CUDA kernel (csrc/*.cu, one nvcc per
-                 source, all in parallel) and print ptxas' register use;
-  kernel_blend   K1 against its plain PyTorch twin on the card, on packed
-                 inputs from a map built by the slice's own steps (first
-                 60 frames), at T 256, K 256 and 512, C 4 and 5;
-  kernel_fisher  K3 against its plain twin at B 32, T 16, K 512, P 1024,
-                 NF 11 and 20, on the same map and 32 candidate poses;
-  slice          the main path at the full width of
-                 configs/mp3d_gaussian_FR_eccv.yaml: FakeSim on
-                 fake_apartment_0 (3x3 rooms) at 256x256, 120 scripted
-                 steps; the map is built as GaussianSLAM does before its
-                 Adam phase (init, _densify every map_every frames,
-                 keyframes every keyframe_every frames), rendered at 8
-                 keyframe poses, H_train summed over all keyframes and 256
-                 candidate poses scored by EIG.  The kernels' launch
-                 counts are zeroed just before and read just after; both
-                 must be > 0.  The first 32 candidates are scored again
-                 on the CPU by the plain twins as the reference (same
-                 argmax, Spearman >= 0.99);
-  kernels        one line per kernel with its launches and max error.
+  build            compile every CUDA kernel (csrc/*.cu, one nvcc per
+                   source, all in parallel) and print ptxas' register use;
+  probe            a map made by GaussianSLAM.track_rgbd over the first 60
+                   frames of the slice (6 mapping events with Adam); the
+                   kernel phases below run on it;
+  kernel_blend     K1 against its plain PyTorch twin on the card, at
+                   T 256, K 256 and 512, C 4 and 5;
+  kernel_blend_bwd K2 against its plain twin at T 256, K 256 and 512, C 4,
+                   chunk 256: gcol is the mapping loss's cotangent at the
+                   latest keyframe, g_t a seeded random one (the mapping
+                   loss gives final T none);
+  kernel_fisher    K3 against its plain twin at B 32, T 16, K 512, P 1024,
+                   NF 11 and 20, on 32 candidate poses;
+  slice            the main path at the full width of
+                   configs/mp3d_gaussian_FR_eccv.yaml: FakeSim on
+                   fake_apartment_0 (3x3 rooms) at 256x256, 120 scripted
+                   steps through GaussianSLAM.track_rgbd (12 mapping
+                   events of densify + 60 Adam steps of 2 frames, K1
+                   forward and K2 backward), then renders at 8 keyframe
+                   poses, H_train over all keyframes and 256 candidate
+                   poses scored by EIG.  The kernels' launch counts are
+                   zeroed just before and read just after; each must be
+                   > 0.  Mapping losses must be finite and fall within an
+                   event on average.  The first 32 candidates are scored
+                   again on the CPU by the plain twins as the reference
+                   (same argmax, Spearman >= 0.99);
+  profile          device time by kernel over one more mapping event and
+                   over one planning query;
+  kernels          one line per kernel with its launches and max error.
 Then one JSON line of per-kernel numbers, the card's name and power limit
 (nvidia-smi), and the last line {"ok": true, "device": {...}}.  Any
 failure raises: the exit code is then nonzero and no result line prints.
@@ -50,12 +59,18 @@ FP32_PEAK = 67e12         # H100 SXM FP32 flop/s outside the tensor cores
 # top of it depends on the data and is not counted, so the bound is low.
 FLOPS_PER_PAIR = 14
 ACTIONS = [2] * 36 + [1] * 24 + [3] * 9 + [1] * 24 + [2] * 18 + [1] * 9
+EXTRA_ACTIONS = [2] * 10        # after the slice: one more mapping event
 N_PROBE_FRAMES = 60
 
 
 def phase(tag, /, **fields):
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+def fmt(row):
+    return {k: (f"{v:.4g}" if isinstance(v, float) else v)
+            for k, v in row.items()}
 
 
 def cuda_ms(fn, reps):
@@ -115,15 +130,16 @@ def main(argv=None):
     from fisher_nerf_customized_tpu_torch.models import slam as tslam
     from fisher_nerf_customized_tpu_torch.models.gaussian_state import (
         GaussianState)
-    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend, cuda_build,
-                                                      cuda_fisher)
+    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
+                                                      cuda_blend_bwd,
+                                                      cuda_build, cuda_fisher)
     from fisher_nerf_customized_tpu_torch.ops.binning import tile_bin
     from fisher_nerf_customized_tpu_torch.ops.fisher import (
         fisher_kernel_inputs)
     from fisher_nerf_customized_tpu_torch.ops.image import calc_psnr
     from fisher_nerf_customized_tpu_torch.ops.projection import preprocess
     from fisher_nerf_customized_tpu_torch.ops.rasterize import (
-        blend_kernel_inputs)
+        _tiles_to_image, blend_kernel_inputs)
     from fisher_nerf_customized_tpu_torch.planning.candidates import (
         generate_candidates)
 
@@ -155,36 +171,37 @@ def main(argv=None):
                                      "mp3d_gaussian_FR_eccv.yaml"))
     scene_seed = zlib.crc32(b"fake_apartment_0") % (2 ** 31)
 
-    def build_map(n_frames):
-        """init + _densify + keyframes, as GaussianSLAM before its Adam
-        phase, over the first n_frames frames of the action script."""
+    def run_slam(actions, events=None):
+        """GaussianSLAM.track_rgbd over the first frame and one frame per
+        action, as the episode driver calls it (ground-truth poses).  With
+        `events`, every step that fires a mapping event is timed (host
+        clock between synchronizes) and appended there with its first and
+        last loss."""
         slam = tslam.GaussianSLAM(cfg, device=dev)
         sim = FakeSim(BoxScene.multi_room(seed=scene_seed), slam.camera,
                       forward_step=float(cfg.forward_step_size),
                       turn_angle=float(cfg.turn_angle), device=dev)
         obs = sim.reset()
-        slam.init(obs["rgb"], obs["depth"], np.linalg.inv(obs["c2w"]))
-        ds = slam.mc.downsample_pcd
-        for t, a in enumerate(ACTIONS[:n_frames - 1], start=1):
-            obs = sim.step(a)
-            w2c = np.linalg.inv(obs["c2w"]).astype(np.float32)
-            color, depth = slam._prep_inputs(obs["rgb"], obs["depth"])
-            if (t + 1) % int(cfg.map_every) == 0:
-                slam._ensure_capacity((slam.camera.height // ds)
-                                      * (slam.camera.width // ds))
-                slam.state, dropped, _n, overflow = tslam._densify(
-                    slam.state, color, depth, slam._w2c(w2c), float(t),
-                    slam.camera, slam.settings, slam.mc)
-                slam._param_version += 1
-                if int(dropped) > 0:
-                    slam._ensure_capacity(int(dropped) + 1024)
-                slam._maybe_bump_tile_capacity(int(overflow), 2)
-            if (t + 1) % int(cfg.keyframe_every) == 0:
-                slam.keyframes.append(color, depth, w2c, t)
-                slam.keyframe_time_indices.append(t)
-            slam.poses_w2c.append(w2c)
-            slam.frame_idx = t
+        slam.track_rgbd(obs["rgb"], obs["depth"], np.linalg.inv(obs["c2w"]))
+        for a in actions:
+            step(slam, sim.step(a), events)
         return slam, sim
+
+    def step(slam, obs, events):
+        before = slam.last_losses
+        if events is not None:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slam.track_rgbd(obs["rgb"], obs["depth"], np.linalg.inv(obs["c2w"]))
+        if events is not None:
+            torch.cuda.synchronize()
+            if slam.last_losses is not before:
+                losses = slam.last_losses.cpu().numpy()
+                events.append(dict(
+                    t=slam.frame_idx, ms=(time.perf_counter() - t0) * 1e3,
+                    loss_first=float(losses[0]), loss_last=float(losses[-1]),
+                    losses_finite=bool(np.isfinite(losses).all()),
+                    n_active=slam.n_active))
 
     def candidates(sim, k, seed):
         agent = sim.c2w[[0, 2], 3][None].astype(np.float32)
@@ -193,8 +210,12 @@ def main(argv=None):
                                    float(ex.min_range), sim.cam_height,
                                    np.random.default_rng(seed))
 
-    probe, probe_sim = build_map(N_PROBE_FRAMES)
+    t0 = time.perf_counter()
+    probe, probe_sim = run_slam(ACTIONS[:N_PROBE_FRAMES - 1])
     torch.cuda.synchronize()
+    phase("probe", frames=N_PROBE_FRAMES, n_active=probe.n_active,
+          keyframes=len(probe.keyframes),
+          seconds=f"{time.perf_counter() - t0:.2f}")
     entries = {}
 
     # ---- kernel_blend -----------------------------------------------------
@@ -205,6 +226,7 @@ def main(argv=None):
     active = probe.state.active
     prep = preprocess(means_cam, scales, quats, probe.camera, active=active)
     blend_rows = []
+    bwd_inputs = {}
     for k in (256, 512):
         st = probe.settings._replace(max_per_tile=k, chunk=min(256, k))
         bins = tile_bin(prep.mean2d, prep.radius, prep.depth, prep.valid,
@@ -250,9 +272,10 @@ def main(argv=None):
                        depth_off_frac=z_off, ms=ms, ms_events=ms_events,
                        plain_ms=plain, bound_ms=bms, bound_by=bby)
             blend_rows.append(row)
-            phase("kernel_blend", **{a: (f"{b:.4g}" if isinstance(b, float)
-                                         else b) for a, b in row.items()})
-    main_blend = blend_rows[0]          # K 256, C 4: the densify render
+            phase("kernel_blend", **fmt(row))
+            if n_ch == 4:
+                bwd_inputs[k] = (st, bins, packed, pix_xy, nvalid, got, rows)
+    main_blend = blend_rows[0]          # K 256, C 4: the mapping render
     entries["blend"] = dict(
         name="blend", route="cuda",
         source="fisher_nerf_customized_tpu_torch/csrc/blend.cu",
@@ -262,6 +285,71 @@ def main(argv=None):
         bound_ms=main_blend["bound_ms"], bound_by=main_blend["bound_by"],
         library_ms=None)
     report["kernel_blend"] = blend_rows
+
+    # ---- kernel_blend_bwd -------------------------------------------------
+    gt_color = probe.keyframes.color_dev(len(probe.keyframes) - 1, dev)
+    gt_depth = probe.keyframes.depth_dev(len(probe.keyframes) - 1, dev)
+    gen = torch.Generator().manual_seed(0)
+    bwd_rows = []
+    for k, (st, bins, packed, pix_xy, nvalid, fwd, rows) in bwd_inputs.items():
+        # gcol: the mapping loss's cotangent of the blended [r, g, b, z]
+        color = fwd[0].detach().requires_grad_()
+        img = _tiles_to_image(color, bins.n_tiles_y, bins.n_tiles_x,
+                              st.tile_size, probe.camera.height,
+                              probe.camera.width)
+        loss = tslam._rgbd_loss(img[..., :3], img[..., 3], gt_color,
+                                gt_depth, probe.mc)
+        gcol, = torch.autograd.grad(loss, [color])
+        g_t = (torch.randn(fwd[1].shape, generator=gen)
+               * float(gcol.std())).to(dev)
+        args = (packed, pix_xy, gcol.contiguous(), g_t, nvalid, st.chunk)
+        got = cuda_blend_bwd.cuda_blend_bwd(*args)
+        ref = cuda_blend_bwd.blend_bwd_plain(*args)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        col_max = ref.abs().reshape(-1, ref.shape[-1]).amax(dim=0)
+        # tolerance: rtol 1e-3 plus 1e-4 of the output column's largest
+        # value.  The kernel sums each slot's P pixels by warp shuffles
+        # and shared-memory atomics (in no fixed order) and forms the
+        # suffix sums as total minus prefix; the twin uses torch's sum,
+        # cumprod and cumsum, so the two round differently, most where
+        # a suffix cancels (dL/dalpha near 0)
+        bad = err > 1e-3 * ref.abs() + 1e-4 * col_max
+        if float(col_max.max()) <= 0 or bool(bad.any()):
+            raise AssertionError(
+                f"K2 K={k}: {int(bad.sum())} entries off, max err per "
+                f"column {err.reshape(-1, err.shape[-1]).amax(0).tolist()} "
+                f"of {col_max.tolist()}")
+        launch = functools.partial(cuda_blend_bwd.cuda_blend_bwd, *args)
+        ms_events = cuda_ms(launch, 20)
+        ms = kernel_device_ms(launch, "blend_bwd_kernel", 20) or ms_events
+        plain = cuda_ms(lambda: cuda_blend_bwd.blend_bwd_plain(*args), 3)
+        n_tiles, _k, f = packed.shape
+        p = pix_xy.shape[-1]
+        n_ch = f - cuda_blend.BASE_F
+        n_bytes = (rows * f + n_tiles * 2 * p + n_tiles
+                   + n_tiles * p * (n_ch + 1)
+                   + n_tiles * k * (6 + n_ch)) * 4
+        bms, bby = bound_ms(n_bytes, rows * p * FLOPS_PER_PAIR)
+        row = dict(K=k, C=n_ch, T=n_tiles, P=p, chunk=st.chunk,
+                   rows_needed=rows, rows_valid=int(nvalid.sum()),
+                   max_abs_err=float(err.max()),
+                   max_value=float(col_max.max()), ms=ms,
+                   ms_events=ms_events, plain_ms=plain, bound_ms=bms,
+                   bound_by=bby)
+        bwd_rows.append(row)
+        phase("kernel_blend_bwd", **fmt(row))
+    main_bwd = bwd_rows[0]              # K 256: the mapping backward
+    entries["blend_bwd"] = dict(
+        name="blend_bwd", route="cuda",
+        source="fisher_nerf_customized_tpu_torch/csrc/blend_bwd.cu",
+        replaces="fisher_nerf_customized_tpu/ops/pallas_blend_bwd.py:63",
+        max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
+        ms=main_bwd["ms"], plain_ms=main_bwd["plain_ms"],
+        bound_ms=main_bwd["bound_ms"], bound_by=main_bwd["bound_by"],
+        library_ms=None)
+    report["kernel_blend_bwd"] = bwd_rows
+    del bwd_inputs, fwd, color, gcol, g_t, args, got, ref
 
     # ---- kernel_fisher ----------------------------------------------------
     cams = candidates(probe_sim, 32, seed=1)
@@ -309,8 +397,7 @@ def main(argv=None):
                    ms=ms, ms_events=ms_events, plain_ms=plain,
                    bound_ms=bms, bound_by=bby)
         fisher_rows.append(row)
-        phase("kernel_fisher", **{a: (f"{b:.4g}" if isinstance(b, float)
-                                      else b) for a, b in row.items()})
+        phase("kernel_fisher", **fmt(row))
     main_fisher = fisher_rows[0]        # NF 11: H_train and pose_eval
     entries["fisher"] = dict(
         name="fisher", route="cuda",
@@ -321,15 +408,20 @@ def main(argv=None):
         bound_ms=main_fisher["bound_ms"], bound_by=main_fisher["bound_by"],
         library_ms=None)
     report["kernel_fisher"] = fisher_rows
-    del probe, probe_sim, packed, got, ref
+    del probe, probe_sim, packed, got, ref, params, prep, means_cam
 
     # ---- slice (the main path) --------------------------------------------
     cuda_blend.launches = 0
+    cuda_blend_bwd.launches = 0
     cuda_fisher.launches = 0
+    events = []
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    slam, sim = build_map(len(ACTIONS) + 1)
+    slam, sim = run_slam(ACTIONS, events)
     torch.cuda.synchronize()
     map_s = time.perf_counter() - t0
+    for ev in events:
+        phase("mapping_event", **fmt(ev))
     n_kf = len(slam.keyframes)
     kf_ids = np.linspace(0, n_kf - 1, 8).round().astype(int)
     psnrs, depth_l1s = [], []
@@ -354,7 +446,9 @@ def main(argv=None):
     scores, _poses = slam.pose_eval(cands)
     torch.cuda.synchronize()
     pose_eval_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(blend=cuda_blend.launches, fisher=cuda_fisher.launches)
+    launches = dict(blend=cuda_blend.launches,
+                    blend_bwd=cuda_blend_bwd.launches,
+                    fisher=cuda_fisher.launches)
     # the same query again, warm (the first pays one-time allocations)
     slam._h_train_cache = None
     t0 = time.perf_counter()
@@ -376,6 +470,17 @@ def main(argv=None):
         raise AssertionError(f"n_active {n_active}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    n_events = (len(ACTIONS) + 1) // int(cfg.map_every)
+    if len(events) != n_events:
+        raise AssertionError(f"{len(events)} mapping events, expected "
+                             f"{n_events}")
+    if not all(ev["losses_finite"] for ev in events):
+        raise AssertionError("non-finite mapping loss")
+    loss_first = float(np.mean([ev["loss_first"] for ev in events]))
+    loss_last = float(np.mean([ev["loss_last"] for ev in events]))
+    if not loss_last < loss_first:
+        raise AssertionError(f"mapping losses do not fall: first "
+                             f"{loss_first}, last {loss_last} (means)")
     # reference: the plain twins on the CPU score the first pose chunk
     # from the same map and H_train.  Scores agree by ranking, as the JAX
     # package's EIG tests hold them: the Fisher rows are discontinuous in
@@ -400,10 +505,13 @@ def main(argv=None):
         raise AssertionError(f"EIG ranking off the CPU reference: spearman "
                              f"{spearman}, rel err {rel.max()}")
     best = int(scores.argmax())
+    event_ms = [ev["ms"] for ev in events]
     slice_row = dict(
         n_active=n_active, keyframes=n_kf,
-        max_per_tile=slam.settings.max_per_tile,
-        map_s=map_s, render_s_8=render_s,
+        max_per_tile=slam.settings.max_per_tile, map_s=map_s,
+        mapping_events=len(events), event_ms_mean=float(np.mean(event_ms)),
+        event_ms_max=float(np.max(event_ms)), loss_first_mean=loss_first,
+        loss_last_mean=loss_last, render_s_8=render_s,
         psnr_mean=float(np.mean(psnrs)), psnr_min=float(np.min(psnrs)),
         depth_l1_mean=float(np.mean(depth_l1s)), h_train_ms=h_train_ms,
         pose_eval_ms=pose_eval_ms, h_train_warm_ms=h_train_warm_ms,
@@ -411,29 +519,43 @@ def main(argv=None):
         argmax_xz=[float(cands[best, 0, 3]), float(cands[best, 2, 3])],
         ref_spearman=spearman, ref_rel_err_max=float(rel.max()),
         ref_rel_err_median=float(np.median(rel)),
-        launches_blend=launches["blend"], launches_fisher=launches["fisher"])
+        launches_blend=launches["blend"],
+        launches_blend_bwd=launches["blend_bwd"],
+        launches_fisher=launches["fisher"])
     report["slice"] = slice_row
-    phase("slice", **{a: (f"{b:.4g}" if isinstance(b, float) else b)
-                      for a, b in slice_row.items()})
+    report["mapping_events"] = events
+    phase("slice", **fmt(slice_row))
 
-    # ---- profile: device time by kernel over one planning query ----------
+    # ---- profile: device time by kernel -----------------------------------
     from torch.profiler import ProfilerActivity, profile
-    slam._h_train_cache = None
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        slam.pose_eval(cands)
+
+    def profiled(tag, fn):
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3) for e in
-            prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    total = sum(ms for _k, ms in rows)
-    report["profile_pose_eval"] = dict(device_ms=total, top=rows[:12])
-    phase("profile", query="H_train+pose_eval",
-          device_ms=f"{total:.4g}" if rows else "not measured")
-    for key, ms in rows[:8]:
-        print(f"  {ms:9.3f} ms  {key[:90]}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in
+                prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        rows.sort(key=lambda r: -r[1])
+        total = sum(ms for _k, ms, _n in rows)
+        report[f"profile_{tag}"] = dict(device_ms=total, wall_ms=wall_ms,
+                                        top=rows[:16])
+        phase("profile", query=tag, wall_ms=f"{wall_ms:.4g}",
+              device_ms=f"{total:.4g}" if rows else "not measured")
+        for key, ms, n in rows[:10]:
+            print(f"  {ms:9.3f} ms  x{n:<6d} {key[:80]}")
+
+    # one more mapping event on the mapped map (the next map_every steps)
+    profiled("mapping_event", lambda: [
+        step(slam, sim.step(a), None)
+        for a in EXTRA_ACTIONS[:int(cfg.map_every)]])
+    slam._h_train_cache = None
+    profiled("pose_eval", lambda: slam.pose_eval(cands))
 
     # ---- kernels ----------------------------------------------------------
     for name, e in entries.items():

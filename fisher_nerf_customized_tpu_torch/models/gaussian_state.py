@@ -97,6 +97,63 @@ def add_gaussians(state: GaussianState, new_params: dict, mask,
     return new_state, dropped
 
 
+def prune_compact(state: GaussianState, keep) -> tuple[GaussianState,
+                                                       torch.Tensor]:
+    """Remove active slots where ~keep and re-compact: a stable partition,
+    kept active slots first, then everything else in order.  keep (C,)
+    bool; entries past n_active are ignored.  Returns the compacted state
+    and the permutation (for optimizer moments, `adam_permute`)."""
+    keep = keep & state.active
+    order = torch.argsort(torch.where(keep, 0, 1), stable=True)
+    updates = {k: getattr(state, k)[order] for k in PARAM_KEYS}
+    new_state = state._replace(timestep=state.timestep[order],
+                               n_active=keep.sum(dtype=torch.int32),
+                               **updates)
+    return new_state, order
+
+
+class AdamState(NamedTuple):
+    mu: dict              # first moments, keyed like the params
+    nu: dict              # second moments
+    count: int            # steps taken
+
+
+def adam_init(params: dict) -> AdamState:
+    return AdamState(mu={k: torch.zeros_like(v) for k, v in params.items()},
+                     nu={k: torch.zeros_like(v) for k, v in params.items()},
+                     count=0)
+
+
+@torch.no_grad()
+def adam_step(opt: AdamState, params: dict, grads: dict, lrs: dict,
+              b1: float = 0.9, b2: float = 0.999,
+              eps: float = 1e-15) -> tuple[dict, AdamState]:
+    """One Adam update with a learning rate per parameter group (a group
+    with lr 0.0 is frozen).  The arithmetic is the JAX package's,
+    (mu / bc1) / (sqrt(nu / bc2) + eps), in f32 with f32 bias corrections;
+    torch.optim.Adam rounds differently.  Returns new tensors."""
+    count = opt.count + 1
+    t = torch.tensor(float(count))
+    bc1 = float(1.0 - torch.tensor(b1) ** t)
+    bc2 = float(1.0 - torch.tensor(b2) ** t)
+    new_params, new_mu, new_nu = {}, {}, {}
+    for k, p in params.items():
+        g = grads[k]
+        mu = b1 * opt.mu[k] + (1 - b1) * g
+        nu = b2 * opt.nu[k] + (1 - b2) * (g * g)
+        update = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+        new_params[k] = p - lrs[k] * update
+        new_mu[k], new_nu[k] = mu, nu
+    return new_params, AdamState(mu=new_mu, nu=new_nu, count=count)
+
+
+def adam_permute(opt: AdamState, order) -> AdamState:
+    """Permute moment slots after prune_compact."""
+    return AdamState(mu={k: v[order] for k, v in opt.mu.items()},
+                     nu={k: v[order] for k, v in opt.nu.items()},
+                     count=opt.count)
+
+
 def state_from_numpy(d: dict, capacity: int, device="cuda") -> GaussianState:
     """A GaussianState from numpy arrays (PARAM_KEYS + timestep +
     n_active, as the JAX package's GaussianState or its checkpoint npz

@@ -1,17 +1,24 @@
-"""Gaussian-SLAM runtime: the map-query slice.
+"""Gaussian-SLAM runtime: mapping and map queries.
 
-The module functions mirror the JAX package's models/slam.py: a map is
-built without an optimiser (`_init_first_frame` back-projects the first
-frame, `_densify` adds Gaussians where the map is missing), rendered at
-poses (`_render_rgbd`, `_render_pose`), and scored by Fisher information
+The module functions mirror the JAX package's models/slam.py.  A map is
+started by back-projecting the first frame (`_init_first_frame`); every
+`map_every` frames a mapping event adds Gaussians where the map is
+missing (`_densify`) and then runs `num_iters` Adam steps on the
+depth-L1 + L1/SSIM loss over a window of keyframes
+(`_mapping_phase_impl`: frozen tile bins per window frame, a soft-kill
+opacity prune, one compaction at the end).  The map is rendered at poses
+(`_render_rgbd`, `_render_pose`) and scored by Fisher information
 (`_fisher_batch`, `_pose_scores`).  `GaussianSLAM` keeps the reference's
-host API for these queries: init / render_at_pose(s) / compute_Hessian /
-compute_H_train / pose_eval(_async) / save / load.  The mapping phase
-(Adam over the map, tracking) is not part of this slice.
+host API: init / track_rgbd (ground-truth poses) / render_at_pose(s) /
+compute_Hessian / compute_H_train / pose_eval(_async) / save / load.
+Optimized tracking, gradient clone/split densification and the
+mesh-sharded mapping phase are not ported yet (ROADMAP.md) and raise
+NotImplementedError.
 
 Every tensor of a GaussianSLAM lives on its `device` ("cuda" by
 default); the ops pick the CUDA kernels for CUDA tensors and their plain
-twins for CPU tensors.
+twins for CPU tensors.  Renders are differentiable: the blend's backward
+is the K2 kernel (ops/rasterize.py BlendFunction).
 """
 from __future__ import annotations
 
@@ -23,20 +30,41 @@ import torch
 
 from ..config import ConfigNode
 from ..ops.camera import Camera
+from ..ops.binning import tile_bin
 from ..ops.fisher import fisher_diag_batch
+from ..ops.image import calc_ssim
+from ..ops.projection import preprocess
 from ..ops.rasterize import RenderSettings, render, render_prebinned
 from ..utils.geometry import invert_se3
-from .gaussian_state import (GaussianState, PARAM_KEYS, add_gaussians,
-                             empty_state, grow_state, state_from_numpy,
-                             state_to_numpy)
-from .keyframes import KeyframeBuffer
+from .gaussian_state import (GaussianState, PARAM_KEYS, adam_init, adam_step,
+                             add_gaussians, empty_state, grow_state,
+                             prune_compact, state_from_numpy, state_to_numpy)
+from .keyframes import KeyframeBuffer, select_keyframes_overlap
+
+_NOT_PORTED = ("{} is not ported to the PyTorch package yet (ROADMAP.md, "
+               "queue 1)")
 
 
 class MappingConfig(NamedTuple):
-    """The mapping hyperparameters this slice reads, from the YAML."""
+    """Mapping hyperparameters, lifted from the YAML."""
+    num_iters: int
     sil_thres: float
+    depth_weight: float
+    im_weight: float
+    prune_enabled: bool
+    prune_every: int
+    prune_start: int
+    prune_stop: int
+    prune_thresh: float
+    prune_big_after: int
+    lr_means3D: float
+    lr_rgb: float
+    lr_rots: float
+    lr_logit_op: float
+    lr_log_scales: float
     depth_error_ratio: float
     downsample_pcd: int
+    frames_per_iter: int = 1
 
 
 def _gaussian_rendervars(params: dict, w2c):
@@ -76,6 +104,106 @@ def _render_rgbd(camera, settings, params, n_active, w2c, bg_white=False,
     if with_depth_sq:
         res["depth_sq"] = out["color"][..., 4]
     return res
+
+
+def _mapping_loss(params, n_active, w2c, gt_color, gt_depth, camera,
+                  settings, mc: MappingConfig, bins=None):
+    """The mapping loss of the render at w2c (see `_rgbd_loss`)."""
+    out = _render_rgbd(camera, settings, params, n_active, w2c, bins=bins)
+    return _rgbd_loss(out["im"], out["depth"], gt_color, gt_depth, mc)
+
+
+def _rgbd_loss(im, depth, gt_color, gt_depth, mc: MappingConfig):
+    """Weighted depth L1 over gt_depth > 0 plus (0.8 L1 + 0.2 (1 - SSIM))
+    on the color, of a rendered (im, depth) pair."""
+    mask = ((gt_depth > 0) & torch.isfinite(depth)).detach()
+    denom = torch.clamp(mask.sum(), min=1)
+    depth_l1 = torch.sum(torch.abs(gt_depth - depth) * mask) / denom
+    im_l1 = torch.mean(torch.abs(im - gt_color))
+    ssim = calc_ssim(im, gt_color)
+    im_loss = 0.8 * im_l1 + 0.2 * (1.0 - ssim)
+    return mc.depth_weight * depth_l1 + mc.im_weight * im_loss
+
+
+@torch.no_grad()
+def _bin_frame(params, active, w2c, camera: Camera,
+               settings: RenderSettings):
+    means_cam, scales, quats, _opac = _gaussian_rendervars(params, w2c)
+    prep = preprocess(means_cam, scales, quats, camera, active=active)
+    return tile_bin(prep.mean2d, prep.radius, prep.depth, prep.valid,
+                    camera.width, camera.height, settings.tile_size,
+                    settings.max_per_tile)
+
+
+def _mapping_phase_impl(state: GaussianState, kf_colors, kf_depths, kf_w2cs,
+                        frame_choices, camera: Camera,
+                        settings: RenderSettings, mc: MappingConfig):
+    """One mapping event: `num_iters // frames_per_iter` Adam steps, each on
+    the mean loss of the window frames `frame_choices[it]`, with periodic
+    opacity pruning.
+
+    kf_colors (B, H, W, 3), kf_depths (B, H, W), kf_w2cs (B, 4, 4): the
+    window; frame_choices (n_steps, F) host ints into it.  The tile bins
+    are made once per window frame from the phase's starting parameters
+    and frozen (splats move far less than a pixel per step); frames with
+    the same pose share one binning, which is exact (a binning depends on
+    the parameters and the pose alone).  Pruning inside the loop is a soft
+    kill (logit opacity -1e10: alpha 0, gradient 0, the frozen bins stay
+    valid), followed by one compaction.  The Adam state is fresh per
+    event.  Returns (state, losses (n_steps,), ga, dn, bin_overflow): ga
+    and dn are the densification statistics (sum of |dL/d means3D| and
+    the count of steps it was nonzero, per slot), bin_overflow the
+    binning truncation summed over the B window frames."""
+    lrs = dict(means3D=mc.lr_means3D, rgb_colors=mc.lr_rgb,
+               unnorm_rotations=mc.lr_rots, logit_opacities=mc.lr_logit_op,
+               log_scales=mc.lr_log_scales)
+    params = {k: v.detach() for k, v in state.params().items()}
+    opt = adam_init(params)
+    active = state.active
+
+    by_pose: dict[bytes, object] = {}
+    frame_bins = []
+    for w2c_host, w2c in zip(kf_w2cs.cpu().numpy(), kf_w2cs):
+        key = w2c_host.tobytes()
+        if key not in by_pose:
+            by_pose[key] = _bin_frame(params, active, w2c, camera, settings)
+        frame_bins.append(by_pose[key])
+    bin_overflow = torch.stack([b.overflow for b in frame_bins]).sum()
+
+    cap = state.capacity
+    ga = torch.zeros(cap, device=active.device)
+    dn = torch.zeros(cap, device=active.device)
+    losses = []
+    for it, frames in enumerate(np.asarray(frame_choices)):
+        leaves = {k: v.requires_grad_() for k, v in params.items()}
+        loss = torch.stack([
+            _mapping_loss(leaves, state.n_active, kf_w2cs[i], kf_colors[i],
+                          kf_depths[i], camera, settings, mc,
+                          bins=frame_bins[i])
+            for i in frames.tolist()]).mean()
+        grads = dict(zip(PARAM_KEYS, torch.autograd.grad(
+            loss, [leaves[k] for k in PARAM_KEYS])))
+        with torch.no_grad():
+            gnorm = torch.linalg.norm(grads["means3D"], dim=-1)
+            ga += gnorm
+            dn += (gnorm > 0).float()
+        params, opt = adam_step(opt, {k: v.detach() for k, v in
+                                      leaves.items()}, grads, lrs, eps=1e-15)
+        if (mc.prune_enabled and mc.prune_start <= it <= mc.prune_stop
+                and it % mc.prune_every == 0):
+            logit = params["logit_opacities"]
+            kill = active & (torch.sigmoid(logit[:, 0]) < mc.prune_thresh)
+            params["logit_opacities"] = torch.where(
+                kill[:, None], torch.full_like(logit, -1e10), logit)
+        losses.append(loss.detach())
+
+    new_state = state.replace_params(params)
+    if mc.prune_enabled:
+        # one compaction releases exactly the soft-killed slots
+        keep = params["logit_opacities"][:, 0] > -1e9
+        new_state, order = prune_compact(new_state, keep)
+        ga, dn = ga[order], dn[order]
+    return new_state, torch.stack(losses), ga, dn, bin_overflow
 
 
 def _median(x):
@@ -258,9 +386,28 @@ class GaussianSLAM:
         self.fisher_full_chain = bool(tpu.get("fisher_full_chain", False))
         mp = cfg.mapping
         self.mc = MappingConfig(
+            num_iters=int(mp.num_iters),
             sil_thres=float(mp.sil_thres),
+            depth_weight=float(mp.loss_weights.depth),
+            im_weight=float(mp.loss_weights.im),
+            prune_enabled=bool(mp.prune_gaussians),
+            prune_every=int(mp.pruning_dict.prune_every),
+            prune_start=int(mp.pruning_dict.start_after),
+            prune_stop=int(mp.pruning_dict.stop_after),
+            prune_thresh=float(mp.pruning_dict.removal_opacity_threshold),
+            prune_big_after=int(mp.pruning_dict.remove_big_after),
+            lr_means3D=float(mp.lrs.means3D),
+            lr_rgb=float(mp.lrs.rgb_colors),
+            lr_rots=float(mp.lrs.unnorm_rotations),
+            lr_logit_op=float(mp.lrs.logit_opacities),
+            lr_log_scales=float(mp.lrs.log_scales),
             depth_error_ratio=float(mp.densify_dict.depth_error_ratio),
-            downsample_pcd=int(cfg.downsample_pcd))
+            downsample_pcd=int(cfg.downsample_pcd),
+            frames_per_iter=int(tpu.get("mapping_frames_per_iter", 1)))
+        self.use_gt_poses = bool(cfg.tracking.use_gt_poses)
+        ma = tpu.get("mesh_axes", None)
+        self.mesh_data = int(ma.data) if ma is not None else 1
+        self.intrinsics = self.camera.intrinsics
         self.state = empty_state(int(tpu.capacity), device=self.device)
         self.pose_chunk = int(tpu.pose_chunk)
         # H_train keyframe budget per planning event (0 = exact full sum)
@@ -271,6 +418,10 @@ class GaussianSLAM:
         self.poses_w2c: list[np.ndarray] = []
         self.frame_idx = -1
         self.initialized = False
+        # the JAX package's numpy stream: one seed gives both packages the
+        # same keyframe windows and frame choices
+        self.rng = np.random.default_rng(0)
+        self.last_losses = None   # (n_steps,) losses of the latest event
         self._param_version = 0   # bumped on any Gaussian-param mutation
 
     # -- helpers ------------------------------------------------------------
@@ -356,6 +507,116 @@ class GaussianSLAM:
         self.keyframe_time_indices.append(0)
         self.initialized = True
         return int(n_added)
+
+    def track_rgbd(self, color, depth, gt_w2c=None, action=None):
+        """Per step: the pose (ground truth), a mapping event every
+        `map_every` frames, a keyframe every `keyframe_every` frames.  The
+        first call initializes the map instead."""
+        if not self.initialized:
+            self.init(color, depth, gt_w2c)
+            return
+        color, depth = self._prep_inputs(color, depth)
+        time_idx = self.frame_idx + 1
+        if self.use_gt_poses and gt_w2c is not None:
+            w2c = np.asarray(gt_w2c, np.float32)
+        else:
+            w2c = self._track_pose(color, depth)
+        self.poses_w2c.append(w2c)
+
+        cfgc = self.cfg
+        if (time_idx + 1) % int(cfgc.map_every) == 0:
+            self._mapping_event(color, depth, w2c, time_idx)
+        if ((time_idx + 1) % int(cfgc.keyframe_every) == 0
+                or time_idx == int(cfgc.num_frames) - 2):
+            self.keyframes.append(color, depth, w2c, time_idx)
+            self.keyframe_time_indices.append(time_idx)
+        self.frame_idx = time_idx
+
+    def _track_pose(self, color, depth) -> np.ndarray:
+        raise NotImplementedError(_NOT_PORTED.format(
+            "Optimized tracking (tracking.use_gt_poses false)"))
+
+    def _drain_densify_guard(self):
+        """Read the previous densify's dropped and overflow counts (kept
+        as device scalars so that no event waits for its own densify) and
+        grow the capacity or the per-tile K accordingly."""
+        prev = getattr(self, "_densify_guard", None)
+        if prev is None:
+            return
+        self._densify_guard = None
+        p_dropped, p_overflow = (int(x) for x in prev)
+        if p_dropped > 0:
+            self._ensure_capacity(p_dropped + 1024)
+        if p_overflow > 0:
+            self._maybe_bump_tile_capacity(p_overflow, 2)
+
+    def _flush_pending_bump(self):
+        """Apply the previous mapping event's deferred binning-overflow
+        check."""
+        if getattr(self, "_pending_bump", None) is None:
+            return
+        overflow, n_renders = self._pending_bump
+        self._pending_bump = None
+        self._maybe_bump_tile_capacity(int(overflow), n_renders)
+
+    def _mapping_event(self, color, depth, w2c, time_idx):
+        """Densify, select the keyframe window, run the Adam phase."""
+        cfgc = self.cfg
+        if bool(cfgc.mapping.use_gaussian_splatting_densification):
+            raise NotImplementedError(_NOT_PORTED.format(
+                "Gradient clone/split densification (gs_densify)"))
+        if self.mesh_data > 1:
+            raise NotImplementedError(_NOT_PORTED.format(
+                "The mesh-sharded mapping phase (tpu.mesh_axes.data > 1)"))
+        self._flush_pending_bump()
+        if bool(cfgc.mapping.add_new_gaussians) and time_idx > 0:
+            # the previous event's guard, checked before this densify
+            self._drain_densify_guard()
+            ds = self.mc.downsample_pcd
+            self._ensure_capacity(
+                (self.camera.height // ds) * (self.camera.width // ds))
+            self.state, dropped, _added, overflow = _densify(
+                self.state, color, depth, self._w2c(w2c), float(time_idx),
+                self.camera, self.settings, self.mc)
+            self._densify_guard = (dropped, overflow)
+
+        # window: overlapping keyframes, the latest keyframe, this frame
+        num_kf = int(cfgc.mapping_window_size) - 2
+        host_depth = depth.detach().cpu().numpy()
+        selected = select_keyframes_overlap(
+            host_depth[None], w2c, self.intrinsics, self.keyframes, num_kf,
+            rng=self.rng)
+        if len(self.keyframes) > 0:
+            selected.append(len(self.keyframes) - 1)
+        dev = self.device
+        win_colors = [self.keyframes.color_dev(i, dev) for i in selected] \
+            + [color]
+        win_depths = [self.keyframes.depth_dev(i, dev) for i in selected] \
+            + [depth]
+        win_w2cs = [self.keyframes.w2cs[i] for i in selected] + [w2c]
+        b = len(win_colors)
+        # padded to a fixed size with the current frame, as the JAX
+        # package does (the draws below depend on b and b_max)
+        b_max = int(cfgc.mapping_window_size)
+        while len(win_colors) < b_max:
+            win_colors.append(win_colors[-1])
+            win_depths.append(win_depths[-1])
+            win_w2cs.append(win_w2cs[-1])
+        win_colors, win_depths = win_colors[:b_max], win_depths[:b_max]
+        win_w2cs = win_w2cs[:b_max]
+        n_steps = max(self.mc.num_iters // self.mc.frames_per_iter, 1)
+        choices = self.rng.integers(
+            0, min(b, b_max), size=(n_steps, self.mc.frames_per_iter))
+        state, losses, _ga, _dn, overflow = _mapping_phase_impl(
+            self.state, torch.stack(win_colors), torch.stack(win_depths),
+            self._w2c(np.stack(win_w2cs)), choices, self.camera,
+            self.settings, self.mc)
+        self.state = state
+        self.last_losses = losses
+        # binning truncation over the window's frames, read at the next
+        # event so that this one is not waited for
+        self._pending_bump = (overflow, b_max)
+        self._param_version += 1
 
     def render_at_pose(self, c2w, white_bg: bool = False, mask=None):
         w2c = np.linalg.inv(np.asarray(c2w, np.float32))

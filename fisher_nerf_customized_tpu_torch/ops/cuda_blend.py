@@ -26,6 +26,23 @@ SATURATED_T = 1e-4
 launches = 0
 
 
+def _pair_alpha(blk, px, py):
+    """blk (T, CH, F) packed rows; px, py (T, 1, P) -> alpha, G, dx, dy
+    (T, CH, P), alpha and G zero where the pair does not blend (outside
+    the ellipse, an invalid row, or alpha below 1/255)."""
+    dx = blk[..., 0:1] - px
+    dy = blk[..., 1:2] - py
+    a, b, c = blk[..., 2:3], blk[..., 3:4], blk[..., 4:5]
+    power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+    inside = power <= 0.0
+    g = torch.exp(torch.where(inside, power, torch.zeros_like(power)))
+    alpha = torch.clamp(blk[..., 5:6] * g, max=0.99)
+    live = inside & (blk[..., 7:8] > 0.5) & (alpha >= 1.0 / 255.0)
+    alpha = torch.where(live, alpha, torch.zeros_like(alpha))
+    g = torch.where(live, g, torch.zeros_like(g))
+    return alpha, g, dx, dy
+
+
 def _blend_walk(packed, pix_xy, nvalid, chunk: int, max_depth: float):
     """blend_plain's body; also returns the rows walked per tile."""
     n_tiles, k, f = packed.shape
@@ -46,16 +63,8 @@ def _blend_walk(packed, pix_xy, nvalid, chunk: int, max_depth: float):
             break
         walked += live.long() * chunk
         blk = packed[:, k0:k0 + chunk]                       # (T, CH, F)
-        dx = blk[..., 0:1] - px                              # (T, CH, P)
-        dy = blk[..., 1:2] - py
-        a, b, c = blk[..., 2:3], blk[..., 3:4], blk[..., 4:5]
-        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-        inside = power <= 0.0
-        g = torch.exp(torch.where(inside, power, torch.zeros_like(power)))
-        alpha = torch.clamp(blk[..., 5:6] * g, max=0.99)
-        keep = (inside & (blk[..., 7:8] > 0.5) & (alpha >= 1.0 / 255.0)
-                & live[:, None, None])
-        alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
+        alpha, _g, _dx, _dy = _pair_alpha(blk, px, py)       # (T, CH, P)
+        alpha = torch.where(live[:, None, None], alpha, torch.zeros_like(alpha))
 
         one_minus = 1.0 - alpha
         cum = torch.cumprod(one_minus, dim=1)

@@ -1,0 +1,157 @@
+"""K2, the blend backward: CUDA kernel wrapper + plain twin.
+
+Counterpart of the JAX package's ops/pallas_blend_bwd.py: the analytic
+power-1 VJP of the K1 tile blend, per slot.  Given the cotangents of the
+blended color `gcol (T, P, C)` and of the final transmittance
+`g_t (T, P)`, the kernel (csrc/blend_bwd.cu) returns per-slot gradients
+(T, K, 6+C) = [d mu_x, d mu_y, d con_a, d con_b, d con_c, d opacity,
+d color_0..C-1], each summed over the tile's P pixels:
+
+  cg_i        = sum_c color_i,c gcol_c           (per pixel)
+  dL/dalpha_i = T_i cg_i - (S_behind,i + g_t T_final) / max(1 - alpha_i, 1e-2)
+  S_behind,i  = sum_{j > i} alpha_j T_j cg_j
+  dL/dopac_i  = G_i dL/dalpha_i,  dL/dG_i = opac_i dL/dalpha_i,
+  dL/dcolor_i = alpha_i T_i gcol,
+
+with the JAX package's conventions: the 0.99 alpha clamp does not gate
+the gradient, dL/dalpha is 0 where alpha is 0, and slots past the
+forward's stop (every pixel's T below 1e-4 after a chunk, K1's rule) or
+past `nvalid` give 0.  The packed rows are K1's (layout in
+ops/cuda_blend.py), so the forward and the backward share one gather.
+`blend_bwd_plain` is the same function in plain PyTorch;
+`cuda_blend_bwd` runs the kernel for CUDA tensors and the plain twin for
+CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+from .cuda_blend import BASE_F, SATURATED_T, _pair_alpha
+
+# Launches of the CUDA kernel (not of the plain twin).
+launches = 0
+
+
+def blend_bwd_plain(packed, pix_xy, gcol, g_t, nvalid, chunk: int):
+    """Plain PyTorch twin of the K2 kernel.
+
+    packed (T, K, 8+C) f32; pix_xy (T, 2, P) f32; gcol (T, P, C) f32;
+    g_t (T, P) f32; nvalid (T,) int.  Returns (T, K, 6+C)."""
+    n_tiles, k, f = packed.shape
+    p = pix_xy.shape[-1]
+    cch = f - BASE_F
+    dev = packed.device
+    px = pix_xy[:, 0, None, :]                               # (T, 1, P)
+    py = pix_xy[:, 1, None, :]
+    n_chunks = torch.clamp((nvalid.long() + chunk - 1) // chunk,
+                           max=k // chunk)
+
+    # pass 1: forward walk, chunk-start T, tile-wide stop (K1's rule)
+    t = torch.ones(n_tiles, p, device=dev)
+    t_starts = []
+    k_eff = torch.zeros(n_tiles, dtype=torch.long, device=dev)
+    for ci in range(k // chunk):
+        live = (ci < n_chunks) & (t.amax(dim=-1) >= SATURATED_T)
+        if not bool(live.any()):
+            break
+        t_starts.append(t)
+        k_eff += live.long()
+        alpha, _g, _dx, _dy = _pair_alpha(
+            packed[:, ci * chunk:(ci + 1) * chunk], px, py)
+        alpha = torch.where(live[:, None, None], alpha, torch.zeros_like(alpha))
+        t = t * torch.prod(1.0 - alpha, dim=1)
+    gtf = g_t * t                                            # (T, P)
+
+    # pass 2: reverse walk over the walked chunks
+    out = torch.zeros(n_tiles, k, 6 + cch, device=dev)
+    s_behind = torch.zeros(n_tiles, p, device=dev)
+    for ci in reversed(range(len(t_starts))):
+        act = (ci < k_eff)[:, None, None]
+        blk = packed[:, ci * chunk:(ci + 1) * chunk]
+        alpha, g, dx, dy = _pair_alpha(blk, px, py)
+        alpha = torch.where(act, alpha, torch.zeros_like(alpha))
+        g = torch.where(act, g, torch.zeros_like(g))
+        one_minus = 1.0 - alpha
+        cum = torch.cumprod(one_minus, dim=1)
+        cum_excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
+        t_before = t_starts[ci][:, None, :] * cum_excl       # (T, CH, P)
+        w = alpha * t_before
+        cg = torch.einsum("tkc,tpc->tkp", blk[..., BASE_F:], gcol)
+        contrib = w * cg
+        suffix_inc = torch.flip(torch.cumsum(torch.flip(contrib, [1]), 1), [1])
+        s_b = (suffix_inc - contrib) + s_behind[:, None, :]
+
+        inv_om = 1.0 / torch.clamp(one_minus, min=1e-2)
+        dl_da = t_before * cg - (s_b + gtf[:, None, :]) * inv_om
+        dl_da = torch.where(alpha > 0.0, dl_da, torch.zeros_like(dl_da))
+        dl_dg = blk[..., 5:6] * dl_da
+        a, b, c = blk[..., 2:3], blk[..., 3:4], blk[..., 4:5]
+        t1 = dl_dg * g
+        out[:, ci * chunk:(ci + 1) * chunk] = torch.cat([
+            torch.stack([
+                (-t1 * (a * dx + b * dy)).sum(-1),
+                (-t1 * (c * dy + b * dx)).sum(-1),
+                (-0.5 * t1 * dx * dx).sum(-1),
+                (-t1 * dx * dy).sum(-1),
+                (-0.5 * t1 * dy * dy).sum(-1),
+                (g * dl_da).sum(-1)], dim=-1),
+            torch.einsum("tkp,tpc->tkc", w, gcol)], dim=-1)
+        s_behind = s_behind + contrib.sum(dim=1)
+    return out
+
+
+def _check(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"cuda_blend_bwd: {msg}")
+
+
+def cuda_blend_bwd(packed, pix_xy, gcol, g_t, nvalid, chunk: int):
+    """K2 on the tensors' device: the CUDA kernel for CUDA tensors, the
+    plain twin for CPU tensors.  Same arguments and output as
+    `blend_bwd_plain`."""
+    global launches
+    if packed.device.type == "cpu":
+        return blend_bwd_plain(packed, pix_xy, gcol, g_t, nvalid, chunk)
+    _check(packed.device.type == "cuda", f"unsupported device {packed.device}")
+    _check(all(x.device == packed.device for x in (pix_xy, gcol, g_t, nvalid)),
+           "all inputs must be on one device")
+    _check(all(x.dtype == torch.float32 for x in (packed, pix_xy, gcol, g_t)),
+           "packed, pix_xy, gcol and g_t must be float32")
+    _check(nvalid.dtype == torch.int32, "nvalid must be int32")
+    _check(packed.dim() == 3 and pix_xy.dim() == 3 and gcol.dim() == 3
+           and g_t.dim() == 2 and nvalid.dim() == 1,
+           "expected packed (T, K, F), pix_xy (T, 2, P), gcol (T, P, C), "
+           "g_t (T, P), nvalid (T,)")
+    n_tiles, k, f = packed.shape
+    p = pix_xy.shape[-1]
+    cch = f - BASE_F
+    _check(pix_xy.shape == (n_tiles, 2, p) and gcol.shape == (n_tiles, p, cch)
+           and g_t.shape == (n_tiles, p) and nvalid.shape == (n_tiles,),
+           "shapes disagree")
+    _check(1 <= cch <= 8, f"{cch} channels; the kernel takes 1 to 8")
+    _check(1 <= p <= 1024 and p % 32 == 0, f"{p} pixels per tile")
+    _check(0 < chunk and k % chunk == 0, f"chunk {chunk} must divide K {k}")
+    smem = 4 * (chunk * f + (k // chunk) * p + chunk * (6 + cch))
+    _check(smem <= 227 * 1024, f"{smem} bytes of shared memory")
+    _check(all(x.is_contiguous() for x in (packed, pix_xy, gcol, g_t, nvalid)),
+           "inputs must be contiguous")
+    out = torch.empty(n_tiles, k, 6 + cch, device=packed.device)
+    if n_tiles == 0:
+        return out
+    lib = cuda_build.load("blend_bwd")
+    fn = lib.fnc_blend_bwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream(packed.device).cuda_stream
+        err = fn(packed.data_ptr(), pix_xy.data_ptr(), gcol.data_ptr(),
+                 g_t.data_ptr(), nvalid.data_ptr(), out.data_ptr(),
+                 n_tiles, k, cch, p, chunk, stream)
+    if err != 0:
+        raise RuntimeError(f"blend_bwd kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out

@@ -47,9 +47,12 @@ def calc_ssim(img1, img2, window_size: int = 11):
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
     # exact in infinite precision: windowed variances are nonnegative and
     # |cov| <= sigma1*sigma2 (Cauchy-Schwarz); f32 cancellation breaks
-    # both once mu² is large, which would unbound the score
-    sigma1_sq = torch.clamp(m11 - mu1_sq, min=0.0)
-    sigma2_sq = torch.clamp(m22 - mu2_sq, min=0.0)
+    # both once mu² is large, which would unbound the score.  maximum, not
+    # clamp: at a tie (a constant patch) its gradient is split 0.5/0.5 as
+    # jnp.maximum's is, where clamp's passes all of it
+    zero = m11.new_zeros(())
+    sigma1_sq = torch.maximum(m11 - mu1_sq, zero)
+    sigma2_sq = torch.maximum(m22 - mu2_sq, zero)
     cs_bound = torch.sqrt(sigma1_sq * sigma2_sq).detach()
     sigma12 = torch.maximum(torch.minimum(m12 - mu1_mu2, cs_bound), -cs_bound)
     c1, c2 = 0.01 ** 2, 0.03 ** 2

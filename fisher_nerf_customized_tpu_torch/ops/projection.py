@@ -63,14 +63,27 @@ def _fov_limits(camera: Camera):
     return 1.3 * tan_fovx, 1.3 * tan_fovy
 
 
+def _floor_z(z):
+    """max(z, 1e-6).  The floors and clips on the differentiated path are
+    maximum/minimum rather than clamp: at a tie their gradient is split
+    0.5/0.5 as jnp.maximum's and jnp.clip's is; clamp passes all of it."""
+    return torch.maximum(z, z.new_tensor(1e-6))
+
+
+def _clip(x, lim: float):
+    """clip(x, -lim, lim) with jnp.clip's tie gradient (see _floor_z)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(-lim)),
+                         x.new_tensor(lim))
+
+
 def project_cov2d(means_cam, cov3d, camera: Camera):
     """EWA: cov2d = J Σ Jᵀ + dilation·I, J the perspective Jacobian at
     the fov-clamped camera-frame mean.  Returns ((a, b, c), (tx, ty, z))."""
     x, y, z = means_cam.unbind(-1)
-    z = torch.clamp(z, min=1e-6)
+    z = _floor_z(z)
     limx, limy = _fov_limits(camera)
-    tx = torch.clamp(x / z, -limx, limx) * z
-    ty = torch.clamp(y / z, -limy, limy) * z
+    tx = _clip(x / z, limx) * z
+    ty = _clip(y / z, limy) * z
 
     fx, fy = camera.fx, camera.fy
     j00 = fx / z
@@ -186,7 +199,7 @@ def preprocess(means_cam, scales, quats, camera: Camera,
     lam_max = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
     radius = torch.ceil(3.0 * torch.sqrt(lam_max))
 
-    zs = torch.clamp(z, min=1e-6)
+    zs = _floor_z(z)
     u = camera.fx * means_cam[..., 0] / zs + camera.cx - 0.5
     v = camera.fy * means_cam[..., 1] / zs + camera.cy - 0.5
     mean2d = torch.stack([u, v], dim=-1)

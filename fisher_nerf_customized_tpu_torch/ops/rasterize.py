@@ -1,11 +1,15 @@
-"""Tile-based 3DGS forward rasterizer (forward only).
+"""Tile-based 3DGS rasterizer, differentiable through the blend.
 
 preprocess (ops/projection.py) -> static-shape tile binning
-(ops/binning.py) -> one packed row gather -> the K1 blend
-(ops/cuda_blend.py: the CUDA kernel on the card, its plain twin on the
-CPU).  The blend stops a tile once every pixel's transmittance is below
-1e-4, as the JAX package's Pallas forward does; its XLA blend never
-stops, so the two differ by at most that tail.
+(ops/binning.py) -> one packed row gather -> the blend, a
+torch.autograd.Function whose forward is K1 (ops/cuda_blend.py) and whose
+backward is K2 (ops/cuda_blend_bwd.py): the CUDA kernels on the card,
+their plain twins on the CPU.  The blend stops a tile once every pixel's
+transmittance is below 1e-4, as the JAX package's Pallas forward does;
+its XLA blend never stops, so the two differ by at most that tail.  The
+gradient reaches the Gaussian parameters by autograd through the row
+gather, preprocess and the caller's own transforms, the chain JAX's AD
+runs through the same functions around its custom VJP.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch
 from .binning import tile_bin
 from .camera import Camera
 from .cuda_blend import cuda_blend
+from .cuda_blend_bwd import cuda_blend_bwd
 from .projection import preprocess
 
 
@@ -68,12 +73,44 @@ def blend_kernel_inputs(st: RenderSettings, prep, bins, opacities, colors):
     return packed, pix_xy, nvalid
 
 
+class BlendFunction(torch.autograd.Function):
+    """K1 forward, K2 backward, with the JAX package's custom-VJP
+    conventions (ops/rasterize.py `blend_packed_pallas_bwd`): the 0.99
+    alpha clamp does not gate the gradient, slots past the tile's stop
+    give 0, the median depth is a measurement (no gradient), and
+    `d_packed` is 0 in the depth and valid columns and on invalid slots.
+
+    apply(packed (T, K, 8+C), pix_xy, nvalid, chunk, max_depth) ->
+    (color (T, P, C), final_t (T, P), med_depth (T, P))."""
+
+    @staticmethod
+    def forward(ctx, packed, pix_xy, nvalid, chunk: int, max_depth: float):
+        color, t_final, med = cuda_blend(packed, pix_xy, nvalid, chunk,
+                                         max_depth)
+        ctx.save_for_backward(packed, pix_xy, nvalid)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(med)
+        return color, t_final, med
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_color, g_t, _g_med):
+        packed, pix_xy, nvalid = ctx.saved_tensors
+        slots = cuda_blend_bwd(packed, pix_xy, g_color.contiguous(),
+                               g_t.contiguous(), nvalid, ctx.chunk)
+        zeros = slots.new_zeros(slots.shape[:-1] + (2,))     # depth, valid
+        d_packed = torch.cat([slots[..., :6], zeros, slots[..., 6:]], dim=-1)
+        d_packed = torch.where(packed[..., 7:8] > 0.5, d_packed,
+                               torch.zeros_like(d_packed))
+        return d_packed, None, None, None, None
+
+
 def _blend(camera: Camera, st: RenderSettings, prep, bins, opacities, colors,
            bg):
     packed, pix_xy, nvalid = blend_kernel_inputs(st, prep, bins, opacities,
                                                  colors)
-    color, t_final, med = cuda_blend(packed, pix_xy, nvalid, st.chunk,
-                                     st.max_depth)
+    color, t_final, med = BlendFunction.apply(packed, pix_xy, nvalid,
+                                              st.chunk, st.max_depth)
     if bg is None:
         bg = torch.zeros(colors.shape[-1], device=packed.device)
     out = color + t_final[:, :, None] * bg[None, None, :]
@@ -89,7 +126,8 @@ def _blend(camera: Camera, st: RenderSettings, prep, bins, opacities, colors,
 def render_prebinned(camera: Camera, means_cam, scales, quats, opacities,
                      colors, bins, bg=None,
                      settings: RenderSettings = RenderSettings()):
-    """Render against a frozen tile-binning table."""
+    """Render against a frozen tile-binning table (differentiable in every
+    input but the table)."""
     prep = preprocess(means_cam, scales, quats, camera)
     return _blend(camera, settings, prep, bins, opacities, colors, bg)
 
@@ -107,6 +145,7 @@ def render(camera: Camera, means_cam, scales, quats, opacities, colors,
     Gaussian-tile entries truncated by the per-tile capacity."""
     st = settings
     prep = preprocess(means_cam, scales, quats, camera, active=active)
-    bins = tile_bin(prep.mean2d, prep.radius, prep.depth, prep.valid,
-                    camera.width, camera.height, st.tile_size, st.max_per_tile)
+    bins = tile_bin(prep.mean2d.detach(), prep.radius.detach(),
+                    prep.depth.detach(), prep.valid, camera.width,
+                    camera.height, st.tile_size, st.max_per_tile)
     return _blend(camera, st, prep, bins, opacities, colors, bg)

@@ -1,5 +1,6 @@
 """Parity of the PyTorch port's projection, binning and render with the
 JAX package on identical numpy inputs (CPU; the port's plain twins)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -146,3 +147,49 @@ def test_image_metrics_match_jax(scale):
                                float(jimg.calc_psnr(ja, jb)), rtol=1e-5)
     np.testing.assert_allclose(float(timg.l1_loss(ta, tb)),
                                float(jimg.l1_loss(ja, jb)), rtol=1e-5)
+
+
+def test_ssim_gradient_matches_jax_on_constant_patches():
+    """calc_ssim's gradient w.r.t. img1 against jax.grad, on inputs with
+    constant patches (one of them 0), where the variance floor
+    max(E[x²] - mu², 0) sits at or next to its tie.  There the variance's
+    own derivative vanishes, so this checks the whole SSIM gradient, not
+    the tie's split (test_project_cov2d_gradient_at_ties_matches_jax
+    does).  Tolerance rtol 1e-4 plus 1e-5 of the largest entry: the two
+    filters sum in different orders, and E[x²] - mu² cancels."""
+    from fisher_nerf_customized_tpu.ops import image as jimg
+    from fisher_nerf_customized_tpu_torch.ops import image as timg
+    rng = np.random.default_rng(5)
+    a = rng.uniform(0, 1, (32, 40, 3)).astype(np.float32)
+    a[4:20, 6:24] = 0.0
+    a[18:30, 20:38] = 0.5
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    b[6:16, 8:18] = 0.25
+    ref = np.asarray(jax.grad(jimg.calc_ssim)(jnp.asarray(a), jnp.asarray(b)))
+    ta = torch.from_numpy(a).requires_grad_()
+    timg.calc_ssim(ta, torch.from_numpy(b)).backward()
+    np.testing.assert_allclose(ta.grad.numpy(), ref, rtol=1e-4,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+def test_project_cov2d_gradient_at_ties_matches_jax():
+    """project_cov2d's gradient w.r.t. the camera-frame means where the
+    fov clip and the z floor tie exactly (x/z = 1.3 tan_fov, z = 1e-6):
+    jnp.clip and jnp.maximum split a tie's gradient 0.5/0.5, and so must
+    the port.  Tolerance rtol 1e-5 (f32 rounding of the same formulas)."""
+    jc, tc = cams(64, 64, 32)                 # tan_fov 1, fov clip 1.3
+    means = np.array([[1.3, 0.2, 1.0], [-0.4, -1.3, 1.0], [0.1, 0.2, 1e-6],
+                      [0.3, -0.5, 2.0]], np.float32)
+    cov = np.array([[0.02, 0.001, 0.002, 0.03, 0.001, 0.04]] * 4, np.float32)
+    w = np.array([1.0, 0.7, 0.3], np.float32)
+
+    def jloss(m):
+        (a, b, c), (tx, ty, z) = jproj.project_cov2d(m, jnp.asarray(cov), jc)
+        return jnp.sum(w[0] * a + w[1] * b + w[2] * c) + jnp.sum(tx + ty + z)
+
+    ref = np.asarray(jax.grad(jloss)(jnp.asarray(means)))
+    tm = torch.from_numpy(means).requires_grad_()
+    (a, b, c), (tx, ty, z) = tproj.project_cov2d(tm, torch.from_numpy(cov), tc)
+    (torch.sum(w[0] * a + w[1] * b + w[2] * c)
+     + torch.sum(tx + ty + z)).backward()
+    np.testing.assert_allclose(tm.grad.numpy(), ref, rtol=1e-5, atol=1e-6)
