@@ -7,17 +7,6 @@ on one NVIDIA GPU.  Run from the repository root:
 Phases, one line each:
   build            compile every CUDA kernel (csrc/*.cu, one nvcc per
                    source, all in parallel) and print ptxas' register use;
-  probe            a map made by GaussianSLAM.track_rgbd over the first 60
-                   frames of the slice (6 mapping events with Adam); the
-                   kernel phases below run on it;
-  kernel_blend     K1 against its plain PyTorch twin on the card, at
-                   T 256, K 256 and 512, C 4 and 5;
-  kernel_blend_bwd K2 against its plain twin at T 256, K 256 and 512, C 4,
-                   chunk 256: gcol is the mapping loss's cotangent at the
-                   latest keyframe, g_t a seeded random one (the mapping
-                   loss gives final T none);
-  kernel_fisher    K3 against its plain twin at B 32, T 16, K 512, P 1024,
-                   NF 11 and 20, on 32 candidate poses;
   slice            the main path at the full width of
                    configs/mp3d_gaussian_FR_eccv.yaml: FakeSim on
                    fake_apartment_0 (3x3 rooms) at 256x256, 120 scripted
@@ -31,13 +20,32 @@ Phases, one line each:
                    event on average.  The first 32 candidates are scored
                    again on the CPU by the plain twins as the reference
                    (same argmax, Spearman >= 0.99);
-  profile          device time by kernel over one more mapping event and
+  probe            a map made by GaussianSLAM.track_rgbd over the first 60
+                   frames of the slice (6 mapping events with Adam); the
+                   kernel phases below run on it;
+  kernel_blend     K1 against its plain PyTorch twin on the card, at
+                   T 256, K 256 and 512, C 4 and 5, with its rows walked
+                   (the stop) against the twin's on every tile; counts the
+                   walked pairs, those left by the per-warp box test and
+                   the live ones (alpha > 0), which set the bound;
+  kernel_blend_bwd K2 against its plain twin at T 256, K 256 and 512, C 4,
+                   chunk 256, fed K1's outputs: gcol is the mapping loss's
+                   cotangent at the latest keyframe, g_t a seeded random
+                   one (the mapping loss gives final T none);
+  kernel_fisher    K3 against its plain twin at B 32, T 16, K 512, P 1024,
+                   NF 11 and 20, on 32 candidate poses;
+  wrappers         what K1's and K2's wrappers cost the host per mapping
+                   event: each kernel phase times its wrapper's host work
+                   per call (checks, allocations, the ctypes launch; no
+                   synchronize between calls);
+  profile          device time by kernel over one more mapping event of the slice's map and
                    over one planning query;
   kernels          one line per kernel with its launches and max error.
 Then one JSON line of per-kernel numbers, the card's name and power limit
 (nvidia-smi), and the last line {"ok": true, "device": {...}}.  Any
 failure raises: the exit code is then nonzero and no result line prints.
-With `--json PATH` every measured number also goes to PATH.
+With `--json PATH` every measured number also goes to PATH;
+`--kernels-only` skips the slice and stops after the kernel phases.
 """
 import argparse
 import functools
@@ -53,14 +61,25 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 MEM_BW = 3.35e12          # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 FP32_PEAK = 67e12         # H100 SXM FP32 flop/s outside the tensor cores
-# Least work per walked (pixel, slot) pair of either kernel: evaluating
-# the Gaussian at the pixel (2 sub, 9 mul/add for the conic power, 1 exp,
-# opacity mul, 0.99 clamp, 1/255 test).  Blending and gradient work on
-# top of it depends on the data and is not counted, so the bound is low.
+# Operations per (pixel, slot) pair, counted from csrc/blend_common.cuh,
+# blend.cu and blend_bwd.cu.  Evaluating the Gaussian at the pixel
+# (pair_alpha): 2 sub, 9 mul/add for the conic power, 1 exp, the opacity
+# mul, the 0.99 clamp and the 1/255 test.
 FLOPS_PER_PAIR = 14
+# K1 on a live pair (alpha > 0), on top: w = alpha T (1), the C-wide
+# blend acc += w color (2C), T (1 - alpha) (2), the median latch's two
+# compares (2).
+K1_FLOPS_PER_LIVE_PAIR = (FLOPS_PER_PAIR + 5, 2)       # 19 + 2C
+# K2 on a live pair, on top: cg = color . gcol (2C), run += alpha T cg (3),
+# T *= 1 - alpha (2), S_behind = gC - run (1), 1/max(1 - alpha, 1e-2) (3),
+# dL/dalpha (4), t1 = opacity dL/dalpha G (2), the five conic and mean
+# gradients (4 + 4 + 3 + 2 + 3), d opacity (1), w = alpha T (1), the C
+# color gradients (C), and the 6+C adds into the sums over pixels.
+K2_FLOPS_PER_LIVE_PAIR = (FLOPS_PER_PAIR + 39, 4)      # 53 + 4C
 ACTIONS = [2] * 36 + [1] * 24 + [3] * 9 + [1] * 24 + [2] * 18 + [1] * 9
 EXTRA_ACTIONS = [2] * 10        # after the slice: one more mapping event
 N_PROBE_FRAMES = 60
+SCENE_SEED = zlib.crc32(b"fake_apartment_0") % (2 ** 31)
 
 
 def phase(tag, /, **fields):
@@ -87,25 +106,124 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def kernel_device_ms(fn, kernel_name, reps):
-    """Device time per launch of the CUDA kernel named kernel_name over
-    reps calls of fn, from the profiler's CUDA kernel rows (None if the
-    profiler records no device time).  Unlike CUDA events around
-    back-to-back calls, it excludes the host gaps between launches."""
+def host_ms(fn, reps):
+    """Host time per call of fn over reps back-to-back calls with no
+    synchronize between them: for a kernel wrapper, its checks,
+    allocations and launch, not the kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
+def kernel_device_ms(fn, kernel_name, reps, tries=3):
+    """Device time per launch of the CUDA kernel named kernel_name over
+    reps calls of fn, from the profiler's CUDA kernel rows.  Unlike CUDA
+    events around back-to-back calls, it excludes the host gaps between
+    launches.  A session that records no row for the kernel is repeated,
+    up to `tries` sessions in all; then it raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(tries):
+        fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if kernel_name in e.key and e.self_device_time_total > 0]
-    if not rows:
-        return None
-    return sum(e.self_device_time_total for e in rows) / 1e3 / sum(
-        e.count for e in rows)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if kernel_name in e.key and e.self_device_time_total > 0]
+        if rows:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / sum(
+                e.count for e in rows)
+        print(f"  profiler session {attempt + 1} recorded no {kernel_name}")
+    raise RuntimeError(f"the profiler recorded no device time for "
+                       f"{kernel_name} in {tries} sessions")
+
+
+def pair_counts(packed, pix_xy, nvalid, walked, warp_pixels):
+    """Pairs of the rows a blend kernel walks (below min(walked, nvalid)):
+    all of them, those left after the per-warp box test of warps of
+    `warp_pixels` pixels, and the live ones (alpha > 0), from the plain
+    twin's pair test on the card; and the rows a warp walks after the box
+    test (mean and max over warps) and their largest sum over a tile."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.ops import cuda_blend
+    k = packed.shape[1]
+    n_walk = torch.minimum(walked.long(), nvalid.long())
+    rows = torch.arange(k, device=packed.device)[None, :] < n_walk[:, None]
+    alpha, _g, _dx, _dy = cuda_blend._pair_alpha(
+        packed, pix_xy[:, 0, None, :], pix_xy[:, 1, None, :])
+    hits = cuda_blend.warp_hits(cuda_blend.row_boxes(packed), pix_xy,
+                                warp_pixels)
+    p = pix_xy.shape[-1]
+    warp_rows = (hits & rows[..., None]).sum(dim=1)             # (T, W)
+    return dict(
+        pairs_walked=int(rows.sum()) * p,
+        pairs_boxed=int(warp_rows.sum()) * warp_pixels,
+        pairs_live=int(((alpha > 0) & rows[..., None]).sum()),
+        warp_rows_mean=float(warp_rows.float().mean()),
+        warp_rows_max=int(warp_rows.max()),
+        tile_warp_rows_max=int(warp_rows.sum(dim=1).max()))
+
+
+def write_json(path, report):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(report, f, indent=1)
+
+
+def eccv_config():
+    """configs/mp3d_gaussian_FR_eccv.yaml over the port's defaults."""
+    from fisher_nerf_customized_tpu_torch.config import get_cfg_defaults
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(os.path.join(HERE, "configs",
+                                     "mp3d_gaussian_FR_eccv.yaml"))
+    return cfg
+
+
+def run_slam(cfg, dev, actions, events=None):
+    """GaussianSLAM.track_rgbd over the first frame and one frame per
+    action, as an episode run calls it (ground-truth poses), on FakeSim
+    fake_apartment_0.  With `events`, every step that fires a mapping event
+    is timed (host clock between synchronizes) and appended there with its
+    first and last loss."""
+    from fisher_nerf_customized_tpu_torch.envs.fake_sim import (BoxScene,
+                                                                FakeSim)
+    from fisher_nerf_customized_tpu_torch.models.slam import GaussianSLAM
+    slam = GaussianSLAM(cfg, device=dev)
+    sim = FakeSim(BoxScene.multi_room(seed=SCENE_SEED), slam.camera,
+                  forward_step=float(cfg.forward_step_size),
+                  turn_angle=float(cfg.turn_angle), device=dev)
+    obs = sim.reset()
+    slam.track_rgbd(obs["rgb"], obs["depth"], np.linalg.inv(obs["c2w"]))
+    for a in actions:
+        step(slam, sim.step(a), events)
+    return slam, sim
+
+
+def step(slam, obs, events):
+    """One track_rgbd call; timed into `events` if it maps (see run_slam)."""
+    import torch
+    before = slam.last_losses
+    if events is not None:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam.track_rgbd(obs["rgb"], obs["depth"], np.linalg.inv(obs["c2w"]))
+    if events is not None:
+        torch.cuda.synchronize()
+        if slam.last_losses is not before:
+            losses = slam.last_losses.cpu().numpy()
+            events.append(dict(
+                t=slam.frame_idx, ms=(time.perf_counter() - t0) * 1e3,
+                loss_first=float(losses[0]), loss_last=float(losses[-1]),
+                losses_finite=bool(np.isfinite(losses).all()),
+                n_active=slam.n_active))
 
 
 def bound_ms(n_bytes, n_ops):
@@ -117,6 +235,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", default=None,
                         help="also write every measured number to this file")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="skip the slice and stop after the kernel "
+                        "phases (a quick check of a kernel change; prints "
+                        "no result line)")
     opts = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -124,9 +246,6 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from fisher_nerf_customized_tpu_torch.config import get_cfg_defaults
-    from fisher_nerf_customized_tpu_torch.envs.fake_sim import (BoxScene,
-                                                                FakeSim)
     from fisher_nerf_customized_tpu_torch.models import slam as tslam
     from fisher_nerf_customized_tpu_torch.models.gaussian_state import (
         GaussianState)
@@ -166,42 +285,7 @@ def main(argv=None):
         for ln in lines:
             print(f"  ptxas {name}: {ln}")
 
-    cfg = get_cfg_defaults()
-    cfg.merge_from_file(os.path.join(HERE, "configs",
-                                     "mp3d_gaussian_FR_eccv.yaml"))
-    scene_seed = zlib.crc32(b"fake_apartment_0") % (2 ** 31)
-
-    def run_slam(actions, events=None):
-        """GaussianSLAM.track_rgbd over the first frame and one frame per
-        action, as the episode driver calls it (ground-truth poses).  With
-        `events`, every step that fires a mapping event is timed (host
-        clock between synchronizes) and appended there with its first and
-        last loss."""
-        slam = tslam.GaussianSLAM(cfg, device=dev)
-        sim = FakeSim(BoxScene.multi_room(seed=scene_seed), slam.camera,
-                      forward_step=float(cfg.forward_step_size),
-                      turn_angle=float(cfg.turn_angle), device=dev)
-        obs = sim.reset()
-        slam.track_rgbd(obs["rgb"], obs["depth"], np.linalg.inv(obs["c2w"]))
-        for a in actions:
-            step(slam, sim.step(a), events)
-        return slam, sim
-
-    def step(slam, obs, events):
-        before = slam.last_losses
-        if events is not None:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        slam.track_rgbd(obs["rgb"], obs["depth"], np.linalg.inv(obs["c2w"]))
-        if events is not None:
-            torch.cuda.synchronize()
-            if slam.last_losses is not before:
-                losses = slam.last_losses.cpu().numpy()
-                events.append(dict(
-                    t=slam.frame_idx, ms=(time.perf_counter() - t0) * 1e3,
-                    loss_first=float(losses[0]), loss_last=float(losses[-1]),
-                    losses_finite=bool(np.isfinite(losses).all()),
-                    n_active=slam.n_active))
+    cfg = eccv_config()
 
     def candidates(sim, k, seed):
         agent = sim.c2w[[0, 2], 3][None].astype(np.float32)
@@ -210,8 +294,127 @@ def main(argv=None):
                                    float(ex.min_range), sim.cam_height,
                                    np.random.default_rng(seed))
 
+    # ---- slice (the main path), first, in a process that has not yet run
+    # anything else: the probe and the kernel phases before it slowed its
+    # host-bound mapping events (PERF.md)
+    if not opts.kernels_only:
+        cuda_blend.launches = 0
+        cuda_blend_bwd.launches = 0
+        cuda_fisher.launches = 0
+        events = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slam, sim = run_slam(cfg, dev, ACTIONS, events)
+        torch.cuda.synchronize()
+        map_s = time.perf_counter() - t0
+        for ev in events:
+            phase("mapping_event", **fmt(ev))
+        n_kf = len(slam.keyframes)
+        kf_ids = np.linspace(0, n_kf - 1, 8).round().astype(int)
+        psnrs, depth_l1s = [], []
+        t0 = time.perf_counter()
+        for i in kf_ids:
+            out = slam.render_at_pose(np.linalg.inv(slam.keyframes.w2cs[i]))
+            gt_rgb = slam.keyframes.color_dev(i, dev)
+            gt_depth = slam.keyframes.depth_dev(i, dev)
+            if not bool(torch.isfinite(out["render"]).all()):
+                raise AssertionError("non-finite render")
+            psnrs.append(float(calc_psnr(out["render"], gt_rgb)))
+            m = gt_depth > 0
+            depth_l1s.append(float((out["depth"] - gt_depth).abs()[m].mean()))
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h_train = slam.compute_H_train()
+        torch.cuda.synchronize()
+        h_train_ms = (time.perf_counter() - t0) * 1e3
+        cands = candidates(sim, int(cfg.explore.sample_view_num), seed=0)
+        t0 = time.perf_counter()
+        scores, _poses = slam.pose_eval(cands)
+        torch.cuda.synchronize()
+        pose_eval_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(blend=cuda_blend.launches,
+                        blend_bwd=cuda_blend_bwd.launches,
+                        fisher=cuda_fisher.launches)
+        # the same query again, warm (the first pays one-time allocations)
+        slam._h_train_cache = None
+        t0 = time.perf_counter()
+        slam.compute_H_train()
+        torch.cuda.synchronize()
+        h_train_warm_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        slam.pose_eval(cands)
+        torch.cuda.synchronize()
+        pose_eval_warm_ms = (time.perf_counter() - t0) * 1e3
+
+        n_active = slam.n_active
+        if not (scores.shape == (len(cands),)
+                and bool(torch.isfinite(scores).all())
+                and bool(torch.isfinite(h_train).all())
+                and float(h_train.min()) >= 0 and float(h_train.max()) > 0):
+            raise AssertionError("H_train or EIG scores malformed")
+        if not 0 < n_active < slam.state.capacity:
+            raise AssertionError(f"n_active {n_active}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a kernel was not launched: {launches}")
+        n_events = (len(ACTIONS) + 1) // int(cfg.map_every)
+        if len(events) != n_events:
+            raise AssertionError(f"{len(events)} mapping events, expected "
+                                 f"{n_events}")
+        if not all(ev["losses_finite"] for ev in events):
+            raise AssertionError("non-finite mapping loss")
+        loss_first = float(np.mean([ev["loss_first"] for ev in events]))
+        loss_last = float(np.mean([ev["loss_last"] for ev in events]))
+        if not loss_last < loss_first:
+            raise AssertionError(f"mapping losses do not fall: first "
+                                 f"{loss_first}, last {loss_last} (means)")
+        # reference: the plain twins on the CPU score the first pose chunk
+        # from the same map and H_train.  Scores agree by ranking, as the JAX
+        # package's EIG tests hold them: the Fisher rows are discontinuous in
+        # the inputs (the 1/255 alpha cut, the T < 1e-4 tile stop, the K cap),
+        # so last-bit differences between the CPU's and the card's
+        # preprocessing move single Gaussian-pixel pairs across a cut.
+        n_ref = slam.pose_chunk
+        cpu_state = GaussianState(*(x.cpu() for x in slam.state))
+        ref_w2cs = torch.from_numpy(
+            np.linalg.inv(cands[:n_ref]).astype(np.float32))
+        ref_scores = tslam._pose_scores(
+            cpu_state, ref_w2cs, (1.0 / (h_train + 0.1)).cpu(),
+            slam.fisher_camera, slam.fisher_settings, slam.fisher_full_chain,
+            slam.fisher_grad_value).numpy()
+        got_ref = scores[:n_ref].cpu().numpy()
+        rel = np.abs(got_ref - ref_scores) / np.abs(ref_scores)
+        rank = lambda x: np.argsort(np.argsort(x))
+        spearman = float(np.corrcoef(rank(got_ref), rank(ref_scores))[0, 1])
+        report["cpu_reference"] = dict(n=n_ref, rel_err=rel.tolist(),
+                                       spearman=spearman)
+        if spearman < 0.99 or int(got_ref.argmax()) != int(ref_scores.argmax()):
+            raise AssertionError(f"EIG ranking off the CPU reference: spearman "
+                                 f"{spearman}, rel err {rel.max()}")
+        best = int(scores.argmax())
+        event_ms = [ev["ms"] for ev in events]
+        slice_row = dict(
+            n_active=n_active, keyframes=n_kf,
+            max_per_tile=slam.settings.max_per_tile, map_s=map_s,
+            mapping_events=len(events), event_ms_mean=float(np.mean(event_ms)),
+            event_ms_max=float(np.max(event_ms)), loss_first_mean=loss_first,
+            loss_last_mean=loss_last, render_s_8=render_s,
+            psnr_mean=float(np.mean(psnrs)), psnr_min=float(np.min(psnrs)),
+            depth_l1_mean=float(np.mean(depth_l1s)), h_train_ms=h_train_ms,
+            pose_eval_ms=pose_eval_ms, h_train_warm_ms=h_train_warm_ms,
+            pose_eval_warm_ms=pose_eval_warm_ms, argmax=best,
+            argmax_xz=[float(cands[best, 0, 3]), float(cands[best, 2, 3])],
+            ref_spearman=spearman, ref_rel_err_max=float(rel.max()),
+            ref_rel_err_median=float(np.median(rel)),
+            launches_blend=launches["blend"],
+            launches_blend_bwd=launches["blend_bwd"],
+            launches_fisher=launches["fisher"])
+        report["slice"] = slice_row
+        report["mapping_events"] = events
+        phase("slice", **fmt(slice_row))
+
     t0 = time.perf_counter()
-    probe, probe_sim = run_slam(ACTIONS[:N_PROBE_FRAMES - 1])
+    probe, probe_sim = run_slam(cfg, dev, ACTIONS[:N_PROBE_FRAMES - 1])
     torch.cuda.synchronize()
     phase("probe", frames=N_PROBE_FRAMES, n_active=probe.n_active,
           keyframes=len(probe.keyframes),
@@ -237,11 +440,29 @@ def main(argv=None):
                                                           else []), dim=-1)
             packed, pix_xy, nvalid = blend_kernel_inputs(st, prep, bins, opac,
                                                          cols)
-            got = cuda_blend.cuda_blend(packed, pix_xy, nvalid, st.chunk,
-                                        st.max_depth)
+            got, got_walked = cuda_blend.cuda_blend(
+                packed, pix_xy, nvalid, st.chunk, st.max_depth)
             ref, walked = cuda_blend._blend_walk(packed, pix_xy, nvalid,
                                                  st.chunk, st.max_depth)
             torch.cuda.synchronize()
+            # the stop: the kernel's rows walked against the twin's, tile by
+            # tile; a tile may differ only where its max T after the chunk
+            # lies within float rounding of the 1e-4 threshold
+            off_tiles = torch.nonzero(got_walked.long() != walked).flatten()
+            for t in off_tiles.tolist():
+                cut = min(int(got_walked[t]), int(walked[t]))
+                (_c, t_cut, _m), _w = cuda_blend._blend_walk(
+                    packed[t:t + 1], pix_xy[t:t + 1],
+                    torch.minimum(nvalid[t:t + 1], torch.tensor(
+                        cut, dtype=nvalid.dtype, device=dev)),
+                    st.chunk, st.max_depth)
+                t_max = float(t_cut.max())
+                print(f"  K1 K={k} C={n_ch} tile {t}: walked "
+                      f"{int(got_walked[t])} vs twin {int(walked[t])}, max T "
+                      f"after row {cut} = {t_max!r}")
+                if abs(t_max / cuda_blend.SATURATED_T - 1.0) > 1e-4:
+                    raise AssertionError(f"K1 K={k} C={n_ch}: stop differs "
+                                         f"on tile {t}")
             err_c = float((got[0] - ref[0]).abs().max())
             err_t = float((got[1] - ref[1]).abs().max())
             dz = (got[2] - ref[2]).abs()
@@ -256,25 +477,39 @@ def main(argv=None):
             launch = functools.partial(cuda_blend.cuda_blend, packed, pix_xy,
                                        nvalid, st.chunk, st.max_depth)
             ms_events = cuda_ms(launch, 20)
-            ms = kernel_device_ms(launch, "blend_kernel", 20) or ms_events
+            ms = kernel_device_ms(launch, "blend_kernel", 20)
+            wrapper_ms = host_ms(launch, 200)
             plain = cuda_ms(lambda: cuda_blend.blend_plain(
                 packed, pix_xy, nvalid, st.chunk, st.max_depth), 3)
             n_tiles, _k, f = packed.shape
             p = pix_xy.shape[-1]
             # rows the walk needs: up to the stop, and none past nvalid
-            rows = int(torch.minimum(walked, nvalid.long()).sum())
+            need = torch.minimum(walked, nvalid.long())
+            rows = int(need.sum())
+            pairs = pair_counts(packed, pix_xy, nvalid, walked,
+                                cuda_blend.WARP)
             n_bytes = (rows * f + n_tiles * 2 * p + n_tiles
-                       + n_tiles * p * (n_ch + 2)) * 4
-            bms, bby = bound_ms(n_bytes, rows * p * FLOPS_PER_PAIR)
+                       + n_tiles * p * (n_ch + 2) + n_tiles) * 4
+            ops = pairs["pairs_live"] * (K1_FLOPS_PER_LIVE_PAIR[0]
+                                         + K1_FLOPS_PER_LIVE_PAIR[1] * n_ch)
+            bms, bby = bound_ms(n_bytes, ops)
+            bwalked, _ = bound_ms(n_bytes, rows * p * FLOPS_PER_PAIR)
             row = dict(K=k, C=n_ch, T=n_tiles, P=p, chunk=st.chunk,
                        rows_needed=rows, rows_valid=int(nvalid.sum()),
+                       nvalid_mean=float(nvalid.float().mean()),
+                       nvalid_max=int(nvalid.max()),
+                       rows_needed_max=int(need.max()), **pairs,
+                       stop_off_tiles=len(off_tiles),
                        err_color=err_c, err_t=err_t, err_depth=err_z,
                        depth_off_frac=z_off, ms=ms, ms_events=ms_events,
-                       plain_ms=plain, bound_ms=bms, bound_by=bby)
+                       host_ms=wrapper_ms, plain_ms=plain, bound_ms=bms,
+                       bound_by=bby,
+                       bound_walked_ms=bwalked)
             blend_rows.append(row)
             phase("kernel_blend", **fmt(row))
             if n_ch == 4:
-                bwd_inputs[k] = (st, bins, packed, pix_xy, nvalid, got, rows)
+                bwd_inputs[k] = (st, bins, packed, pix_xy, nvalid, got,
+                                 got_walked, walked)
     main_blend = blend_rows[0]          # K 256, C 4: the mapping render
     entries["blend"] = dict(
         name="blend", route="cuda",
@@ -291,7 +526,8 @@ def main(argv=None):
     gt_depth = probe.keyframes.depth_dev(len(probe.keyframes) - 1, dev)
     gen = torch.Generator().manual_seed(0)
     bwd_rows = []
-    for k, (st, bins, packed, pix_xy, nvalid, fwd, rows) in bwd_inputs.items():
+    for k, (st, bins, packed, pix_xy, nvalid, fwd, fwd_walked,
+            walked) in bwd_inputs.items():
         # gcol: the mapping loss's cotangent of the blended [r, g, b, z]
         color = fwd[0].detach().requires_grad_()
         img = _tiles_to_image(color, bins.n_tiles_y, bins.n_tiles_x,
@@ -303,16 +539,26 @@ def main(argv=None):
         g_t = (torch.randn(fwd[1].shape, generator=gen)
                * float(gcol.std())).to(dev)
         args = (packed, pix_xy, gcol.contiguous(), g_t, nvalid, st.chunk)
-        got = cuda_blend_bwd.cuda_blend_bwd(*args)
+        fwd_out = dict(color=fwd[0], t_final=fwd[1], walked=fwd_walked)
         ref = cuda_blend_bwd.blend_bwd_plain(*args)
+        col_max = ref.abs().reshape(-1, ref.shape[-1]).amax(dim=0)
+        n_tiles, _k, f = packed.shape
+        p = pix_xy.shape[-1]
+        n_ch = f - cuda_blend.BASE_F
+        rows = int(torch.minimum(walked, nvalid.long()).sum())
+        n_bytes = (rows * f + n_tiles * 2 * p + n_tiles
+                   + n_tiles * p * (n_ch + 1)            # gcol, g_t
+                   + n_tiles * p * (n_ch + 1) + n_tiles  # K1's outputs
+                   + n_tiles * k * (6 + n_ch)) * 4
+        bwalked, _ = bound_ms(n_bytes, rows * p * FLOPS_PER_PAIR)
+        got = cuda_blend_bwd.cuda_blend_bwd(*args, **fwd_out)
         torch.cuda.synchronize()
         err = (got - ref).abs()
-        col_max = ref.abs().reshape(-1, ref.shape[-1]).amax(dim=0)
         # tolerance: rtol 1e-3 plus 1e-4 of the output column's largest
-        # value.  The kernel sums each slot's P pixels by warp shuffles
-        # and shared-memory atomics (in no fixed order) and forms the
-        # suffix sums as total minus prefix; the twin uses torch's sum,
-        # cumprod and cumsum, so the two round differently, most where
+        # value.  The kernel sums each slot's P pixels by warp shuffles and
+        # fixed-order shared-memory adds and forms the suffix sums as
+        # gcol . C_final minus the running prefix; the twin uses torch's
+        # sum, cumprod and cumsum, so the two round differently, most where
         # a suffix cancels (dL/dalpha near 0)
         bad = err > 1e-3 * ref.abs() + 1e-4 * col_max
         if float(col_max.max()) <= 0 or bool(bad.any()):
@@ -320,23 +566,23 @@ def main(argv=None):
                 f"K2 K={k}: {int(bad.sum())} entries off, max err per "
                 f"column {err.reshape(-1, err.shape[-1]).amax(0).tolist()} "
                 f"of {col_max.tolist()}")
-        launch = functools.partial(cuda_blend_bwd.cuda_blend_bwd, *args)
+        launch = functools.partial(cuda_blend_bwd.cuda_blend_bwd, *args,
+                                   **fwd_out)
         ms_events = cuda_ms(launch, 20)
-        ms = kernel_device_ms(launch, "blend_bwd_kernel", 20) or ms_events
+        ms = kernel_device_ms(launch, "blend_bwd_kernel", 20)
+        wrapper_ms = host_ms(launch, 200)
         plain = cuda_ms(lambda: cuda_blend_bwd.blend_bwd_plain(*args), 3)
-        n_tiles, _k, f = packed.shape
-        p = pix_xy.shape[-1]
-        n_ch = f - cuda_blend.BASE_F
-        n_bytes = (rows * f + n_tiles * 2 * p + n_tiles
-                   + n_tiles * p * (n_ch + 1)
-                   + n_tiles * k * (6 + n_ch)) * 4
-        bms, bby = bound_ms(n_bytes, rows * p * FLOPS_PER_PAIR)
+        pairs = pair_counts(packed, pix_xy, nvalid, walked,
+                            cuda_blend_bwd.PIXELS_PER_WARP)
+        ops = pairs["pairs_live"] * (K2_FLOPS_PER_LIVE_PAIR[0]
+                                     + K2_FLOPS_PER_LIVE_PAIR[1] * n_ch)
+        bms, bby = bound_ms(n_bytes, ops)
         row = dict(K=k, C=n_ch, T=n_tiles, P=p, chunk=st.chunk,
                    rows_needed=rows, rows_valid=int(nvalid.sum()),
-                   max_abs_err=float(err.max()),
-                   max_value=float(col_max.max()), ms=ms,
-                   ms_events=ms_events, plain_ms=plain, bound_ms=bms,
-                   bound_by=bby)
+                   max_value=float(col_max.max()),
+                   max_abs_err=float(err.max()), ms=ms, ms_events=ms_events,
+                   host_ms=wrapper_ms, plain_ms=plain, bound_ms=bms,
+                   bound_by=bby, bound_walked_ms=bwalked, **pairs)
         bwd_rows.append(row)
         phase("kernel_blend_bwd", **fmt(row))
     main_bwd = bwd_rows[0]              # K 256: the mapping backward
@@ -349,7 +595,7 @@ def main(argv=None):
         bound_ms=main_bwd["bound_ms"], bound_by=main_bwd["bound_by"],
         library_ms=None)
     report["kernel_blend_bwd"] = bwd_rows
-    del bwd_inputs, fwd, color, gcol, g_t, args, got, ref
+    del bwd_inputs, fwd, fwd_out, color, gcol, g_t, args, got, ref
 
     # ---- kernel_fisher ----------------------------------------------------
     cams = candidates(probe_sim, 32, seed=1)
@@ -383,7 +629,7 @@ def main(argv=None):
                                  f"max err {float(err.max())} of {scale}")
         launch = functools.partial(cuda_fisher.cuda_fisher_slots, *args)
         ms_events = cuda_ms(launch, 20)
-        ms = kernel_device_ms(launch, "fisher_kernel", 20) or ms_events
+        ms = kernel_device_ms(launch, "fisher_kernel", 20)
         plain = cuda_ms(lambda: cuda_fisher.fisher_slots_plain(*args), 3)
         p = pix_xy.shape[-1]
         rows = int(torch.minimum(k_eff * st.chunk,
@@ -409,122 +655,17 @@ def main(argv=None):
         library_ms=None)
     report["kernel_fisher"] = fisher_rows
     del probe, probe_sim, packed, got, ref, params, prep, means_cam
+    if opts.kernels_only:
+        if opts.json:
+            write_json(opts.json, report)
+        return 0
+    # host time of K1's and K2's wrappers per mapping event, from their host
+    # ms per call at K 256 and the slice's launches
+    wrappers_ms = (main_blend["host_ms"] * launches["blend"]
+                   + main_bwd["host_ms"] * launches["blend_bwd"]) / len(events)
+    report["slice"]["blend_wrappers_host_ms_per_event"] = wrappers_ms
+    phase("wrappers", blend_wrappers_host_ms_per_event=f"{wrappers_ms:.4g}")
 
-    # ---- slice (the main path) --------------------------------------------
-    cuda_blend.launches = 0
-    cuda_blend_bwd.launches = 0
-    cuda_fisher.launches = 0
-    events = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    slam, sim = run_slam(ACTIONS, events)
-    torch.cuda.synchronize()
-    map_s = time.perf_counter() - t0
-    for ev in events:
-        phase("mapping_event", **fmt(ev))
-    n_kf = len(slam.keyframes)
-    kf_ids = np.linspace(0, n_kf - 1, 8).round().astype(int)
-    psnrs, depth_l1s = [], []
-    t0 = time.perf_counter()
-    for i in kf_ids:
-        out = slam.render_at_pose(np.linalg.inv(slam.keyframes.w2cs[i]))
-        gt_rgb = slam.keyframes.color_dev(i, dev)
-        gt_depth = slam.keyframes.depth_dev(i, dev)
-        if not bool(torch.isfinite(out["render"]).all()):
-            raise AssertionError("non-finite render")
-        psnrs.append(float(calc_psnr(out["render"], gt_rgb)))
-        m = gt_depth > 0
-        depth_l1s.append(float((out["depth"] - gt_depth).abs()[m].mean()))
-    torch.cuda.synchronize()
-    render_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    h_train = slam.compute_H_train()
-    torch.cuda.synchronize()
-    h_train_ms = (time.perf_counter() - t0) * 1e3
-    cands = candidates(sim, int(cfg.explore.sample_view_num), seed=0)
-    t0 = time.perf_counter()
-    scores, _poses = slam.pose_eval(cands)
-    torch.cuda.synchronize()
-    pose_eval_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(blend=cuda_blend.launches,
-                    blend_bwd=cuda_blend_bwd.launches,
-                    fisher=cuda_fisher.launches)
-    # the same query again, warm (the first pays one-time allocations)
-    slam._h_train_cache = None
-    t0 = time.perf_counter()
-    slam.compute_H_train()
-    torch.cuda.synchronize()
-    h_train_warm_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    slam.pose_eval(cands)
-    torch.cuda.synchronize()
-    pose_eval_warm_ms = (time.perf_counter() - t0) * 1e3
-
-    n_active = slam.n_active
-    if not (scores.shape == (len(cands),)
-            and bool(torch.isfinite(scores).all())
-            and bool(torch.isfinite(h_train).all())
-            and float(h_train.min()) >= 0 and float(h_train.max()) > 0):
-        raise AssertionError("H_train or EIG scores malformed")
-    if not 0 < n_active < slam.state.capacity:
-        raise AssertionError(f"n_active {n_active}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
-    n_events = (len(ACTIONS) + 1) // int(cfg.map_every)
-    if len(events) != n_events:
-        raise AssertionError(f"{len(events)} mapping events, expected "
-                             f"{n_events}")
-    if not all(ev["losses_finite"] for ev in events):
-        raise AssertionError("non-finite mapping loss")
-    loss_first = float(np.mean([ev["loss_first"] for ev in events]))
-    loss_last = float(np.mean([ev["loss_last"] for ev in events]))
-    if not loss_last < loss_first:
-        raise AssertionError(f"mapping losses do not fall: first "
-                             f"{loss_first}, last {loss_last} (means)")
-    # reference: the plain twins on the CPU score the first pose chunk
-    # from the same map and H_train.  Scores agree by ranking, as the JAX
-    # package's EIG tests hold them: the Fisher rows are discontinuous in
-    # the inputs (the 1/255 alpha cut, the T < 1e-4 tile stop, the K cap),
-    # so last-bit differences between the CPU's and the card's
-    # preprocessing move single Gaussian-pixel pairs across a cut.
-    n_ref = slam.pose_chunk
-    cpu_state = GaussianState(*(x.cpu() for x in slam.state))
-    ref_w2cs = torch.from_numpy(
-        np.linalg.inv(cands[:n_ref]).astype(np.float32))
-    ref_scores = tslam._pose_scores(
-        cpu_state, ref_w2cs, (1.0 / (h_train + 0.1)).cpu(),
-        slam.fisher_camera, slam.fisher_settings, slam.fisher_full_chain,
-        slam.fisher_grad_value).numpy()
-    got_ref = scores[:n_ref].cpu().numpy()
-    rel = np.abs(got_ref - ref_scores) / np.abs(ref_scores)
-    rank = lambda x: np.argsort(np.argsort(x))
-    spearman = float(np.corrcoef(rank(got_ref), rank(ref_scores))[0, 1])
-    report["cpu_reference"] = dict(n=n_ref, rel_err=rel.tolist(),
-                                   spearman=spearman)
-    if spearman < 0.99 or int(got_ref.argmax()) != int(ref_scores.argmax()):
-        raise AssertionError(f"EIG ranking off the CPU reference: spearman "
-                             f"{spearman}, rel err {rel.max()}")
-    best = int(scores.argmax())
-    event_ms = [ev["ms"] for ev in events]
-    slice_row = dict(
-        n_active=n_active, keyframes=n_kf,
-        max_per_tile=slam.settings.max_per_tile, map_s=map_s,
-        mapping_events=len(events), event_ms_mean=float(np.mean(event_ms)),
-        event_ms_max=float(np.max(event_ms)), loss_first_mean=loss_first,
-        loss_last_mean=loss_last, render_s_8=render_s,
-        psnr_mean=float(np.mean(psnrs)), psnr_min=float(np.min(psnrs)),
-        depth_l1_mean=float(np.mean(depth_l1s)), h_train_ms=h_train_ms,
-        pose_eval_ms=pose_eval_ms, h_train_warm_ms=h_train_warm_ms,
-        pose_eval_warm_ms=pose_eval_warm_ms, argmax=best,
-        argmax_xz=[float(cands[best, 0, 3]), float(cands[best, 2, 3])],
-        ref_spearman=spearman, ref_rel_err_max=float(rel.max()),
-        ref_rel_err_median=float(np.median(rel)),
-        launches_blend=launches["blend"],
-        launches_blend_bwd=launches["blend_bwd"],
-        launches_fisher=launches["fisher"])
-    report["slice"] = slice_row
-    report["mapping_events"] = events
-    phase("slice", **fmt(slice_row))
 
     # ---- profile: device time by kernel -----------------------------------
     from torch.profiler import ProfilerActivity, profile
@@ -543,10 +684,13 @@ def main(argv=None):
                 and e.self_device_time_total > 0]
         rows.sort(key=lambda r: -r[1])
         total = sum(ms for _k, ms, _n in rows)
+        by_kernel = {name: sum(ms for key, ms, _n in rows if f"{name}_kernel"
+                               in key) for name in entries}
         report[f"profile_{tag}"] = dict(device_ms=total, wall_ms=wall_ms,
-                                        top=rows[:16])
+                                        kernel_ms=by_kernel, top=rows[:16])
         phase("profile", query=tag, wall_ms=f"{wall_ms:.4g}",
-              device_ms=f"{total:.4g}" if rows else "not measured")
+              device_ms=f"{total:.4g}" if rows else "not measured",
+              **{f"{name}_ms": f"{ms:.4g}" for name, ms in by_kernel.items()})
         for key, ms, n in rows[:10]:
             print(f"  {ms:9.3f} ms  x{n:<6d} {key[:80]}")
 
@@ -564,10 +708,7 @@ def main(argv=None):
               max_abs_err=f"{e['max_abs_err']:.3g}", ms=f"{e['ms']:.4g}")
     report["kernels"] = list(entries.values())
     if opts.json:
-        os.makedirs(os.path.dirname(os.path.abspath(opts.json)),
-                    exist_ok=True)
-        with open(opts.json, "w") as f:
-            json.dump(report, f, indent=1)
+        write_json(opts.json, report)
     print(json.dumps({"kernels": report["kernels"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

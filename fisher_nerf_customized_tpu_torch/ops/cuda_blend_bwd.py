@@ -21,6 +21,13 @@ ops/cuda_blend.py), so the forward and the backward share one gather.
 `blend_bwd_plain` is the same function in plain PyTorch;
 `cuda_blend_bwd` runs the kernel for CUDA tensors and the plain twin for
 CPU tensors.
+
+The kernel walks each tile once and takes what the twin's first pass and
+suffix sums compute from K1's outputs: the stop from the rows walked,
+g_t T_final from the final T, and S_behind,i = gcol . C_final - run_i
+with run_i = sum_{j <= i} alpha_j T_j cg_j and C_final K1's color
+without the background.  `blend_bwd_one_walk` is that algebra in plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -33,6 +40,25 @@ from .cuda_blend import BASE_F, SATURATED_T, _pair_alpha
 
 # Launches of the CUDA kernel (not of the plain twin).
 launches = 0
+# The kernel gives each pixel two lanes, so a warp walks 16 pixels.
+PIXELS_PER_WARP = 16
+
+
+def _slot_grads(blk, alpha, g, dx, dy, dl_da, w, gcol):
+    """Per-slot sums over the tile's pixels (T, CH, 6+C) from per-pair
+    alpha, G, dx, dy, dL/dalpha and weight w = alpha T (T, CH, P)."""
+    dl_dg = blk[..., 5:6] * dl_da
+    a, b, c = blk[..., 2:3], blk[..., 3:4], blk[..., 4:5]
+    t1 = dl_dg * g
+    return torch.cat([
+        torch.stack([
+            (-t1 * (a * dx + b * dy)).sum(-1),
+            (-t1 * (c * dy + b * dx)).sum(-1),
+            (-0.5 * t1 * dx * dx).sum(-1),
+            (-t1 * dx * dy).sum(-1),
+            (-0.5 * t1 * dy * dy).sum(-1),
+            (g * dl_da).sum(-1)], dim=-1),
+        torch.einsum("tkp,tpc->tkc", w, gcol)], dim=-1)
 
 
 def blend_bwd_plain(packed, pix_xy, gcol, g_t, nvalid, chunk: int):
@@ -87,20 +113,38 @@ def blend_bwd_plain(packed, pix_xy, gcol, g_t, nvalid, chunk: int):
         inv_om = 1.0 / torch.clamp(one_minus, min=1e-2)
         dl_da = t_before * cg - (s_b + gtf[:, None, :]) * inv_om
         dl_da = torch.where(alpha > 0.0, dl_da, torch.zeros_like(dl_da))
-        dl_dg = blk[..., 5:6] * dl_da
-        a, b, c = blk[..., 2:3], blk[..., 3:4], blk[..., 4:5]
-        t1 = dl_dg * g
-        out[:, ci * chunk:(ci + 1) * chunk] = torch.cat([
-            torch.stack([
-                (-t1 * (a * dx + b * dy)).sum(-1),
-                (-t1 * (c * dy + b * dx)).sum(-1),
-                (-0.5 * t1 * dx * dx).sum(-1),
-                (-t1 * dx * dy).sum(-1),
-                (-0.5 * t1 * dy * dy).sum(-1),
-                (g * dl_da).sum(-1)], dim=-1),
-            torch.einsum("tkp,tpc->tkc", w, gcol)], dim=-1)
+        out[:, ci * chunk:(ci + 1) * chunk] = _slot_grads(
+            blk, alpha, g, dx, dy, dl_da, w, gcol)
         s_behind = s_behind + contrib.sum(dim=1)
     return out
+
+
+def blend_bwd_one_walk(packed, pix_xy, gcol, g_t, nvalid, color, t_final,
+                       walked):
+    """The kernel's one-walk algebra in plain PyTorch: `blend_bwd_plain`'s
+    function, computed from K1's outputs (color without background
+    (T, P, C), final T (T, P), rows walked (T,)) in a single front-to-back
+    pass over the rows below min(walked, nvalid)."""
+    n_tiles, k, f = packed.shape
+    px = pix_xy[:, 0, None, :]                               # (T, 1, P)
+    py = pix_xy[:, 1, None, :]
+    alpha, g, dx, dy = _pair_alpha(packed, px, py)           # (T, K, P)
+    n_walk = torch.minimum(walked.long(), nvalid.long())
+    rows = torch.arange(k, device=packed.device)[None, :] < n_walk[:, None]
+    alpha = torch.where(rows[..., None], alpha, torch.zeros_like(alpha))
+    g = torch.where(rows[..., None], g, torch.zeros_like(g))
+    one_minus = 1.0 - alpha
+    cum = torch.cumprod(one_minus, dim=1)
+    t_before = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
+    w = alpha * t_before
+    cg = torch.einsum("tkc,tpc->tkp", packed[..., BASE_F:], gcol)
+    run = torch.cumsum(w * cg, dim=1)                        # inclusive
+    s_b = (gcol * color).sum(-1)[:, None, :] - run
+    gtf = (g_t * t_final)[:, None, :]
+    inv_om = 1.0 / torch.clamp(one_minus, min=1e-2)
+    dl_da = t_before * cg - (s_b + gtf) * inv_om
+    dl_da = torch.where(alpha > 0.0, dl_da, torch.zeros_like(dl_da))
+    return _slot_grads(packed, alpha, g, dx, dy, dl_da, w, gcol)
 
 
 def _check(cond: bool, msg: str):
@@ -108,49 +152,68 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"cuda_blend_bwd: {msg}")
 
 
-def cuda_blend_bwd(packed, pix_xy, gcol, g_t, nvalid, chunk: int):
+def cuda_blend_bwd(packed, pix_xy, gcol, g_t, nvalid, chunk: int, *,
+                   color=None, t_final=None, walked=None):
     """K2 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain twin for CPU tensors.  Same arguments and output as
-    `blend_bwd_plain`."""
+    `blend_bwd_plain`; the kernel also needs K1's outputs on these rows
+    (`cuda_blend`): `color` (T, P, C) without background, `t_final`
+    (T, P) and `walked` (T,) int32, which the twin does not read."""
     global launches
     if packed.device.type == "cpu":
         return blend_bwd_plain(packed, pix_xy, gcol, g_t, nvalid, chunk)
     _check(packed.device.type == "cuda", f"unsupported device {packed.device}")
-    _check(all(x.device == packed.device for x in (pix_xy, gcol, g_t, nvalid)),
+    _check(color is not None and t_final is not None and walked is not None,
+           "the kernel needs K1's color, t_final and walked")
+    ins = (pix_xy, gcol, g_t, nvalid, color, t_final, walked)
+    _check(all(x.device == packed.device for x in ins),
            "all inputs must be on one device")
-    _check(all(x.dtype == torch.float32 for x in (packed, pix_xy, gcol, g_t)),
-           "packed, pix_xy, gcol and g_t must be float32")
-    _check(nvalid.dtype == torch.int32, "nvalid must be int32")
-    _check(packed.dim() == 3 and pix_xy.dim() == 3 and gcol.dim() == 3
-           and g_t.dim() == 2 and nvalid.dim() == 1,
-           "expected packed (T, K, F), pix_xy (T, 2, P), gcol (T, P, C), "
-           "g_t (T, P), nvalid (T,)")
+    _check(all(x.dtype == torch.float32
+               for x in (packed, pix_xy, gcol, g_t, color, t_final)),
+           "packed, pix_xy, gcol, g_t, color and t_final must be float32")
+    _check(nvalid.dtype == torch.int32 and walked.dtype == torch.int32,
+           "nvalid and walked must be int32")
+    _check(packed.dim() == 3 and pix_xy.dim() == 3,
+           "expected packed (T, K, F) and pix_xy (T, 2, P)")
     n_tiles, k, f = packed.shape
     p = pix_xy.shape[-1]
     cch = f - BASE_F
     _check(pix_xy.shape == (n_tiles, 2, p) and gcol.shape == (n_tiles, p, cch)
-           and g_t.shape == (n_tiles, p) and nvalid.shape == (n_tiles,),
-           "shapes disagree")
+           and g_t.shape == (n_tiles, p) and nvalid.shape == (n_tiles,)
+           and color.shape == gcol.shape and t_final.shape == g_t.shape
+           and walked.shape == nvalid.shape,
+           "expected gcol and color (T, P, C), g_t and t_final (T, P), "
+           "nvalid and walked (T,)")
     _check(1 <= cch <= 8, f"{cch} channels; the kernel takes 1 to 8")
-    _check(1 <= p <= 1024 and p % 32 == 0, f"{p} pixels per tile")
+    # a tile's 2 P lanes over the fewest blocks, at least 2, of at most
+    # 256 threads, all in one thread-block cluster (at most 8 blocks)
+    splits = max(2, 2 * p // 256)
+    threads = 2 * p // splits
+    _check(splits <= 8 and threads * splits == 2 * p and threads % 32 == 0
+           and threads <= 256,
+           f"{p} pixels per tile do not split into at most 8 blocks of "
+           f"whole warps of at most 256 threads")
     _check(0 < chunk and k % chunk == 0, f"chunk {chunk} must divide K {k}")
-    smem = 4 * (chunk * f + (k // chunk) * p + chunk * (6 + cch))
+    warps = threads // 32
+    smem = 4 * (2 * 64 * ((f + 3) // 4 * 4) + 4 * 64
+                + (k + warps * 64) * (6 + cch))
     _check(smem <= 227 * 1024, f"{smem} bytes of shared memory")
-    _check(all(x.is_contiguous() for x in (packed, pix_xy, gcol, g_t, nvalid)),
+    _check(packed.is_contiguous() and all(x.is_contiguous() for x in ins),
            "inputs must be contiguous")
     out = torch.empty(n_tiles, k, 6 + cch, device=packed.device)
     if n_tiles == 0:
         return out
     lib = cuda_build.load("blend_bwd")
     fn = lib.fnc_blend_bwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
         err = fn(packed.data_ptr(), pix_xy.data_ptr(), gcol.data_ptr(),
-                 g_t.data_ptr(), nvalid.data_ptr(), out.data_ptr(),
-                 n_tiles, k, cch, p, chunk, stream)
+                 g_t.data_ptr(), nvalid.data_ptr(), color.data_ptr(),
+                 t_final.data_ptr(), walked.data_ptr(), out.data_ptr(),
+                 n_tiles, k, cch, p, splits, stream)
     if err != 0:
         raise RuntimeError(f"blend_bwd kernel launch failed: CUDA error {err}")
     launches += 1

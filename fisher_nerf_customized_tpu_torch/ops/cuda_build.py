@@ -3,8 +3,10 @@
 Each source in ../csrc is compiled by `nvcc` for Hopper (sm_90a) into a
 shared library with a plain C interface, loaded with ctypes.  No PyTorch
 headers are included, so a build takes seconds.  Libraries land in
-../_build (listed in .gitignore), named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+../_build (listed in .gitignore), named by a hash of the flags, the
+source and every ../csrc header it includes (`#include "x.cuh"`,
+followed recursively), so editing a source or one of its headers
+rebuilds it and an unchanged one is reused.
 Nothing is built at import: the first call that needs a library builds
 it, or `build_all()` builds every source at once, one nvcc process per
 source, all started together.
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -40,9 +44,24 @@ def _nvcc() -> str:
     return found
 
 
+def _source_closure(path: Path, seen: dict[Path, bytes]) -> None:
+    """The bytes of `path` and of every csrc header it includes."""
+    if path in seen:
+        return
+    seen[path] = text = path.read_bytes()
+    for inc in _INCLUDE.findall(text):
+        header = CSRC / inc.decode()
+        if header.exists():
+            _source_closure(header, seen)
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    seen: dict[Path, bytes] = {}
+    _source_closure(CSRC / f"{name}.cu", seen)
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(seen):
+        h.update(path.name.encode() + b"\0" + seen[path])
+    tag = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 

@@ -85,9 +85,10 @@ class BlendFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, packed, pix_xy, nvalid, chunk: int, max_depth: float):
-        color, t_final, med = cuda_blend(packed, pix_xy, nvalid, chunk,
-                                         max_depth)
-        ctx.save_for_backward(packed, pix_xy, nvalid)
+        (color, t_final, med), walked = cuda_blend(packed, pix_xy, nvalid,
+                                                   chunk, max_depth)
+        # K2 reads K1's outputs: the stop, T_final and the suffix sums
+        ctx.save_for_backward(packed, pix_xy, nvalid, color, t_final, walked)
         ctx.chunk = chunk
         ctx.mark_non_differentiable(med)
         return color, t_final, med
@@ -95,9 +96,10 @@ class BlendFunction(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_color, g_t, _g_med):
-        packed, pix_xy, nvalid = ctx.saved_tensors
+        packed, pix_xy, nvalid, color, t_final, walked = ctx.saved_tensors
         slots = cuda_blend_bwd(packed, pix_xy, g_color.contiguous(),
-                               g_t.contiguous(), nvalid, ctx.chunk)
+                               g_t.contiguous(), nvalid, ctx.chunk,
+                               color=color, t_final=t_final, walked=walked)
         zeros = slots.new_zeros(slots.shape[:-1] + (2,))     # depth, valid
         d_packed = torch.cat([slots[..., :6], zeros, slots[..., 6:]], dim=-1)
         d_packed = torch.where(packed[..., 7:8] > 0.5, d_packed,

@@ -64,8 +64,9 @@ def test_blend_plain_matches_pallas_interpret(kind, n_ch):
     ref = pallas_blend(jnp.asarray(packed), jnp.asarray(pix_xy),
                        jnp.asarray(nvalid), TILE, K, chunk=CHUNK,
                        max_depth=15.0, interpret=True)
-    got = cuda_blend.cuda_blend(*(torch.from_numpy(np.array(x)) for x in
-                                  (packed, pix_xy, nvalid)), CHUNK, 15.0)
+    got, _walked = cuda_blend.cuda_blend(
+        *(torch.from_numpy(np.array(x)) for x in (packed, pix_xy, nvalid)),
+        CHUNK, 15.0)
     for g, r, atol in zip(got, ref, (3e-4, 3e-4, 1e-2)):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=atol)
 
