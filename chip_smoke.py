@@ -33,7 +33,14 @@ Phases, one line each:
                    cotangent at the latest keyframe, g_t a seeded random
                    one (the mapping loss gives final T none);
   kernel_fisher    K3 against its plain twin at B 32, T 16, K 512, P 1024,
-                   NF 11 and 20, on 32 candidate poses;
+                   NF 11 and 20, on 32 candidate poses; two launches must
+                   give the same rows to the bit, and a row of NaN opacity
+                   must give the twin's zeros; counts the walked pairs,
+                   those left by the box test on K3's warp patches, those
+                   of rows that blend in the warp's patch (its second walk)
+                   and the live ones, which set the bound; the ptxas report
+                   of each K3 instantiation must show no stack frame and no
+                   spills;
   wrappers         what K1's and K2's wrappers cost the host per mapping
                    event: each kernel phase times its wrapper's host work
                    per call (checks, allocations, the ctypes launch; no
@@ -76,6 +83,15 @@ K1_FLOPS_PER_LIVE_PAIR = (FLOPS_PER_PAIR + 5, 2)       # 19 + 2C
 # gradients (4 + 4 + 3 + 2 + 3), d opacity (1), w = alpha T (1), the C
 # color gradients (C), and the 6+C adds into the sums over pixels.
 K2_FLOPS_PER_LIVE_PAIR = (FLOPS_PER_PAIR + 39, 4)      # 53 + 4C
+# K3 (csrc/fisher.cu) on a live pair: two evaluations (one per walk);
+# per walk w = alpha T (1), the C or run fma (2), T (1 - alpha) (2); in
+# walk 2, S_behind = C - run (1), 1/max(1 - alpha, 1e-2) (2), dL/dalpha
+# (4), t1 = opacity dL/dalpha G (2), the two 2D-mean gradients (4 + 4),
+# gx, gy, gz (1 + 1 + 3), d opacity (1), the four squares added (8).  The
+# full chain adds the three conic cotangents (3 + 2 + 3) and their nine
+# products with the Jacobian added into gx, gy, gz (18).
+K3_FLOPS_PER_LIVE_PAIR = {11: 2 * FLOPS_PER_PAIR + 2 * 5 + 31,     # 69
+                          20: 2 * FLOPS_PER_PAIR + 2 * 5 + 31 + 26}  # 95
 ACTIONS = [2] * 36 + [1] * 24 + [3] * 9 + [1] * 24 + [2] * 18 + [1] * 9
 EXTRA_ACTIONS = [2] * 10        # after the slice: one more mapping event
 N_PROBE_FRAMES = 60
@@ -170,6 +186,59 @@ def pair_counts(packed, pix_xy, nvalid, walked, warp_pixels):
         warp_rows_mean=float(warp_rows.float().mean()),
         warp_rows_max=int(warp_rows.max()),
         tile_warp_rows_max=int(warp_rows.sum(dim=1).max()))
+
+
+def fisher_pair_counts(packed, pix_xy, nvalid, k_eff, chunk):
+    """Pairs of the rows K3 walks (below min(k_eff chunk, nvalid) per
+    (pose, tile)): all of them, those left after the box test on K3's warp
+    patches (its first walk), those of the rows that blend at some pixel
+    of the warp's patch (its second walk), and the live ones (alpha > 0),
+    from the twin's pair test on the card; the rows a warp walks after
+    the box test (mean and max over warps); and, per (pose, tile) and
+    averaged over them, the rows of each walk on its critical path: the
+    sum over chunks of the busiest warp's rows (`*_chunk_max`, the walk
+    waits at a barrier after each chunk), the busiest warp's rows over all
+    chunks (`*_warp_max`) and the mean over warps (`*_warp_mean`)."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.ops import cuda_fisher
+    nb, n_tiles, k, nf = packed.shape
+    p = pix_xy.shape[-1]
+    rows = packed.reshape(-1, k, nf)
+    n_walk = torch.minimum(k_eff * chunk, nvalid.reshape(-1).long())
+    warp_px = cuda_fisher.fisher_warp_pixels(p).to(packed.device)
+    per_warp = warp_px.shape[1]
+    counts = dict(pairs_walked=0, pairs_boxed=0, pairs_warp_blend=0,
+                  pairs_live=0)
+    warp_rows = []
+    crit = {f"{w}_{c}": [] for w in ("walk1", "walk2")
+            for c in ("chunk_max", "warp_max", "warp_mean")}
+    for r0 in range(0, rows.shape[0], 32):          # 32 (pose, tile)s at once
+        blk = rows[r0:r0 + 32]
+        pix = pix_xy[torch.arange(r0, r0 + blk.shape[0],
+                                  device=packed.device) % n_tiles]
+        walk = (torch.arange(k, device=packed.device)[None, :]
+                < n_walk[r0:r0 + blk.shape[0], None])              # (S, K)
+        alpha, _g, _dx, _dy = cuda_fisher._chunk_alpha(
+            blk, pix[:, 0, None, :], pix[:, 1, None, :])          # (S, K, P)
+        live = (alpha > 0) & walk[..., None]
+        hits = cuda_fisher.fisher_warp_hits(
+            cuda_fisher.fisher_row_boxes(blk), pix) & walk[..., None]
+        blends = live[..., warp_px].any(dim=-1)                   # (S, K, W)
+        counts["pairs_walked"] += int(walk.sum()) * p
+        counts["pairs_boxed"] += int(hits.sum()) * per_warp
+        counts["pairs_warp_blend"] += int(blends.sum()) * per_warp
+        counts["pairs_live"] += int(live.sum())
+        warp_rows.append(hits.sum(dim=1))
+        for walk, m in (("walk1", hits), ("walk2", blends)):
+            per_chunk = m.reshape(m.shape[0], k // chunk, chunk, -1).sum(2)
+            crit[f"{walk}_chunk_max"].append(per_chunk.amax(-1).sum(-1))
+            crit[f"{walk}_warp_max"].append(per_chunk.sum(1).amax(-1))
+            crit[f"{walk}_warp_mean"].append(per_chunk.sum(1).float().mean(-1))
+    warp_rows = torch.cat(warp_rows)
+    return dict(counts, warp_rows_mean=float(warp_rows.float().mean()),
+                warp_rows_max=int(warp_rows.max()),
+                **{key: float(torch.cat(v).float().mean())
+                   for key, v in crit.items()})
 
 
 def write_json(path, report):
@@ -284,6 +353,13 @@ def main(argv=None):
     for name, lines in ptxas.items():
         for ln in lines:
             print(f"  ptxas {name}: {ln}")
+    # K3 keeps every per-pixel array in registers: a stack frame or a spill
+    # is a regression (a 64-byte frame once cost K2 3x, PERF.md)
+    bad = [ln for ln in ptxas.get("fisher", []) if "spill" in ln and
+           not ln.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                             "0 bytes spill loads")]
+    if bad:
+        raise AssertionError(f"K3 uses local memory: {bad}")
 
     cfg = eccv_config()
 
@@ -627,21 +703,52 @@ def main(argv=None):
         if scale <= 0 or bool(bad.any()):
             raise AssertionError(f"K3 NF={nf}: {int(bad.sum())} rows off, "
                                  f"max err {float(err.max())} of {scale}")
+        # two launches on the same inputs: the same rows to the bit (fixed
+        # order of summation, no atomics)
+        again = cuda_fisher.cuda_fisher_slots(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K3 NF={nf}: two launches differ by up to "
+                                 f"{float((got - again).abs().max())}")
+        # a NaN opacity fails the 1/255 test: the row blends nowhere, gives
+        # the twin's zeros, and the other rows are as the twin's
+        bt = int(nvalid.reshape(-1).argmax())
+        nan_packed = packed.clone()
+        nan_packed[bt // n_tiles, bt % n_tiles, 0, 5] = float("nan")
+        nan_args = (nan_packed,) + args[1:]
+        got_nan = cuda_fisher.cuda_fisher_slots(*nan_args)
+        ref_nan = cuda_fisher.fisher_slots_plain(*nan_args)
+        torch.cuda.synchronize()
+        nan_row = got_nan[bt // n_tiles, bt % n_tiles, 0]
+        if not (bool((nan_row == 0).all()) and bool(
+                (ref_nan[bt // n_tiles, bt % n_tiles, 0] == 0).all())
+                and not bool(((got_nan - ref_nan).abs() > 5e-3 * ref_nan.abs()
+                              + 1e-6 * scale).any())):
+            raise AssertionError(f"K3 NF={nf}: the NaN-opacity row "
+                                 f"{nan_row.tolist()} or the rows beside it "
+                                 f"differ from the twin's")
+        del nan_packed, got_nan, ref_nan, again
         launch = functools.partial(cuda_fisher.cuda_fisher_slots, *args)
         ms_events = cuda_ms(launch, 20)
         ms = kernel_device_ms(launch, "fisher_kernel", 20)
+        wrapper_ms = host_ms(launch, 200)
         plain = cuda_ms(lambda: cuda_fisher.fisher_slots_plain(*args), 3)
         p = pix_xy.shape[-1]
         rows = int(torch.minimum(k_eff * st.chunk,
                                  nvalid.reshape(-1).long()).sum())
         n_bytes = (rows * nf + n_tiles * 2 * p + nb * n_tiles
                    + nb * n_tiles * k * 4) * 4
-        bms, bby = bound_ms(n_bytes, rows * p * FLOPS_PER_PAIR)
+        pairs = fisher_pair_counts(packed, pix_xy, nvalid, k_eff, st.chunk)
+        bms, bby = bound_ms(n_bytes,
+                            pairs["pairs_live"] * K3_FLOPS_PER_LIVE_PAIR[nf])
+        bwalked, _ = bound_ms(n_bytes, rows * p * FLOPS_PER_PAIR)
         row = dict(NF=nf, B=nb, T=n_tiles, K=k, P=p, chunk=st.chunk,
                    rows_needed=rows, rows_valid=int(nvalid.sum()),
                    max_abs_err=float(err.max()), max_value=scale,
-                   ms=ms, ms_events=ms_events, plain_ms=plain,
-                   bound_ms=bms, bound_by=bby)
+                   ms=ms, ms_events=ms_events, host_ms=wrapper_ms,
+                   plain_ms=plain, bound_ms=bms, bound_by=bby,
+                   bound_walked_ms=bwalked, bitwise_repeat=True,
+                   nan_row_zero=True, **pairs)
         fisher_rows.append(row)
         phase("kernel_fisher", **fmt(row))
     main_fisher = fisher_rows[0]        # NF 11: H_train and pose_eval

@@ -1,13 +1,16 @@
-// Pieces shared by K1 (blend.cu) and K2 (blend_bwd.cu): the pair's alpha,
-// the conservative pixel box of a row's blend region, the per-warp pixel
-// range it is tested against, and cp.async staging of packed rows into
-// shared memory at a padded stride.
+// Pieces shared by K1 (blend.cu), K2 (blend_bwd.cu) and K3 (fisher.cu):
+// the pair's alpha, the conservative pixel box of a row's blend region,
+// the per-warp pixel range it is tested against, and cp.async staging of
+// packed rows into shared memory at a padded stride.
 //
-// Packed row layout (global memory, F = 8 + C floats): [mu_x, mu_y, con_a,
-// con_b, con_c, opacity, depth, valid, color_0..C-1].  In shared memory a
-// row takes FP = F rounded up to a multiple of 4 floats, so that it loads
-// as float4s: r[0] = (mu_x, mu_y, a, b), r[1] = (c, opacity, depth,
-// valid), r[2..] = the colors (padding floats are never used).
+// Packed row layout of K1 and K2 (global memory, F = 8 + C floats):
+// [mu_x, mu_y, con_a, con_b, con_c, opacity, depth, valid, color_0..C-1].
+// In shared memory a row takes FP = F rounded up to a multiple of 4
+// floats, so that it loads as float4s: r[0] = (mu_x, mu_y, a, b), r[1] =
+// (c, opacity, depth, valid), r[2..] = the colors (padding floats are
+// never used).  K3's rows start with the same six fields but have no
+// valid column (an invalid row has opacity 0): it calls the forms below
+// that take the validity as an argument.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,18 +32,19 @@ struct Pair {
 // (outside the ellipse, an invalid row, alpha below 1/255, or a NaN
 // anywhere on the way: the tests are written so that a NaN never blends,
 // and the 0.99 clamp keeps a NaN, as torch.clamp and jnp.minimum do).
-__device__ __forceinline__ Pair pair_alpha(float4 r0, float4 r1, float px,
-                                           float py) {
+// r0 = (mu_x, mu_y, a, b), c the conic's third entry, op the opacity.
+__device__ __forceinline__ Pair pair_alpha(float4 r0, float c, float op,
+                                           bool valid, float px, float py) {
   Pair o;
   o.dx = r0.x - px;
   o.dy = r0.y - py;
-  const float power = -0.5f * (r0.z * o.dx * o.dx + r1.x * o.dy * o.dy)
+  const float power = -0.5f * (r0.z * o.dx * o.dx + c * o.dy * o.dy)
                       - r0.w * o.dx * o.dy;
   o.alpha = 0.f;
   o.g = 0.f;
-  if (power <= 0.f && r1.w > 0.5f) {
+  if (power <= 0.f && valid) {
     const float g = expf(power);
-    const float a0 = r1.y * g;
+    const float a0 = op * g;
     const float a = a0 > 0.99f ? 0.99f : a0;
     if (a >= kAlphaMin) {
       o.alpha = a;
@@ -48,6 +52,11 @@ __device__ __forceinline__ Pair pair_alpha(float4 r0, float4 r1, float px,
     }
   }
   return o;
+}
+
+__device__ __forceinline__ Pair pair_alpha(float4 r0, float4 r1, float px,
+                                           float py) {
+  return pair_alpha(r0, r1.x, r1.y, r1.w > 0.5f, px, py);
 }
 
 // Conservative pixel box (x0, x1, y0, y1) of a row's blend region: every
@@ -61,11 +70,12 @@ __device__ __forceinline__ Pair pair_alpha(float4 r0, float4 r1, float px,
 // a <= 0) or so elongated (a c / det > 1000) that rounding of power
 // outgrows the margin; always culled (an empty box) for an invalid row or
 // opacity below 1/255.  Mirrored by ops/cuda_blend.py::row_boxes.
-__device__ __forceinline__ float4 row_box(const float4* r) {
-  const float4 r0 = r[0], r1 = r[1];
-  const float a = r0.z, b = r0.w, c = r1.x, op = r1.y;
+// r0 = (mu_x, mu_y, a, b), c the conic's third entry, op the opacity.
+__device__ __forceinline__ float4 row_box(float4 r0, float c, float op,
+                                          bool valid) {
+  const float a = r0.z, b = r0.w;
   const float inf = __int_as_float(0x7f800000);
-  if (!(r1.w > 0.5f) || !(op * 1.0001f >= kAlphaMin))
+  if (!valid || !(op * 1.0001f >= kAlphaMin))
     return make_float4(inf, -inf, inf, -inf);
   const float det = a * c - b * b;
   if (!(det > 0.f && a > 0.f && a * c <= 1000.f * det))
@@ -76,6 +86,11 @@ __device__ __forceinline__ float4 row_box(const float4* r) {
   const float hy = sqrtf(r2 * a / det) * 1.005f + 1e-2f
                    + 1e-6f * fabsf(r0.y);
   return make_float4(r0.x - hx, r0.x + hx, r0.y - hy, r0.y + hy);
+}
+
+__device__ __forceinline__ float4 row_box(const float4* r) {
+  const float4 r1 = r[1];
+  return row_box(r[0], r1.x, r1.y, r1.w > 0.5f);
 }
 
 // Pixel range (x0, x1, y0, y1) covered by the calling warp: the min and

@@ -53,7 +53,7 @@ def _pair_alpha(blk, px, py):
     return alpha, g, dx, dy
 
 
-def row_boxes(packed):
+def row_boxes(packed, valid_column: bool = True):
     """Conservative pixel box [x0, x1, y0, y1] (T, K, 4) of each row's
     blend region, the kernels' `row_box` in float32: every pixel at which
     `_pair_alpha` gives alpha > 0 lies inside.  From alpha >= 1/255 <=>
@@ -61,10 +61,13 @@ def row_boxes(packed):
     r sqrt(c/det), r sqrt(a/det), widened by 1 % in r2, 0.5 % in each
     half-width, 0.01 pixel and 1e-6 |mu| against float rounding.  Infinite
     where the region is unbounded (det <= 0, a <= 0) or too elongated
-    (a c > 1000 det); empty for an invalid row or opacity below 1/255."""
+    (a c > 1000 det); empty for an invalid row or opacity below 1/255.
+    With `valid_column` False the rows have no valid column (K3's layout,
+    where an invalid row has opacity 0)."""
     mx, my = packed[..., 0], packed[..., 1]
     a, b, c = packed[..., 2], packed[..., 3], packed[..., 4]
-    op, valid = packed[..., 5], packed[..., 7]
+    op = packed[..., 5]
+    valid = packed[..., 7] if valid_column else torch.ones_like(op)
     det = a * c - b * b
     r2 = torch.clamp(2.0 * torch.log(255.0 * op), min=0.0) * 1.01 + 1e-5
     hx = torch.sqrt(r2 * c / det) * 1.005 + 1e-2 + 1e-6 * mx.abs()

@@ -1,16 +1,25 @@
 """K3, the Fisher squared backward: CUDA kernel wrapper + plain twin.
 
 Counterpart of the JAX package's ops/pallas_fisher.py.  Per (pose, tile)
-the kernel (csrc/fisher.cu) runs two passes over the tile's packed slot
-rows: pass 1 walks front to back, records each chunk's starting
-transmittance and stops the tile after the first chunk that leaves every
-pixel below T = 1e-4 (or at ceil(nvalid/chunk) chunks); pass 2 walks the
-same chunks back to front and, under a uniform cotangent `grad_value`,
-forms each pixel's gradient w.r.t. [mean_cam x, y, z, opacity], squares
-it and sums it over the tile's pixels into per-slot rows.
-`fisher_slots_plain` is the same function in plain PyTorch with the same
-early stop and `nvalid` bound.  `cuda_fisher_slots` runs the kernel for
-CUDA tensors and the plain twin for CPU tensors.
+the result is each slot's sum over the tile's pixels of the squared
+gradient w.r.t. [mean_cam x, y, z, opacity] under a uniform cotangent
+`grad_value`, over the rows walked before the tile's stop: the first
+chunk after which every pixel's transmittance is below 1e-4, or
+ceil(nvalid/chunk) chunks.  `fisher_slots_plain` (the twin) computes it
+as the Pallas kernel does: a forward walk that records each chunk's
+starting transmittance, then a reverse walk over the same chunks that
+forms the suffix S_behind.  The CUDA kernel (csrc/fisher.cu) walks front
+to back twice instead: the first walk stops the tile and totals
+C = sum alpha T csum per pixel, the second forms S_behind = C - run from
+the inclusive prefix run; `fisher_one_walk` is that algebra in plain
+PyTorch.  `cuda_fisher_slots` runs the kernel for CUDA tensors and the
+twin for CPU tensors.
+
+The kernel gives each warp a compact patch of the tile's pixels
+(`fisher_warp_pixels`) and skips, per warp, the rows whose conservative
+pixel box (`fisher_row_boxes`, the K3-layout form of
+ops/cuda_blend.py::row_boxes) misses the patch; a skipped pair has
+alpha = 0, so the skip changes no result.
 
 Packed row layout (11 wide): [mu_x, mu_y, con_a, con_b, con_c, opacity,
 depth, mc_x, mc_y, mc_z, color sum]; the 20-wide full-chain layout adds
@@ -23,10 +32,15 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .cuda_blend import row_boxes, warp_hits
 
 NF = 11
 NF_FULL = 20
 SATURATED_T = 1e-4
+# The kernel's thread -> pixel map: each lane a 2x1 pair, each warp an
+# 8x8 patch (csrc/fisher.cu::warp_pixel).
+PIXELS_PER_LANE = 2
+PIXELS_PER_WARP = 32 * PIXELS_PER_LANE
 
 # Launches of the CUDA kernel (not of the plain twin).
 launches = 0
@@ -68,11 +82,48 @@ def _chunk_alpha(blk, px, py):
     return alpha, g, dx, dy
 
 
+def _slot_rows(blk, alpha, g, dx, dy, t_before, s_b, grad_value: float,
+               fx: float, fy: float):
+    """Per-slot rows (R, CH, 4): the squared per-pixel gradients w.r.t.
+    [mean_cam x, y, z, opacity] summed over the pixels, from per-pair
+    alpha, G, dx, dy, T before the pair and S_behind (R, CH, P) of the
+    rows blk (R, CH, NF).  A pair that does not blend (alpha = 0) adds
+    exactly 0, also where a field of its row is not finite (a NaN opacity
+    times a zero dL/dalpha would be NaN), as in the kernel, where such a
+    row blends nowhere and is skipped."""
+    live = alpha > 0.0
+    zero = torch.zeros_like(alpha)
+    inv_om = 1.0 / torch.clamp(1.0 - alpha, min=1e-2)
+    csum = blk[..., 10:11]
+    dl_da = grad_value * (t_before * csum - s_b * inv_om)
+    dl_da = torch.where(live, dl_da, zero)
+    dl_do = g * dl_da
+    dl_dg = blk[..., 5:6] * dl_da
+    a, b, c = blk[..., 2:3], blk[..., 3:4], blk[..., 4:5]
+    dl_dmx = dl_dg * (-g * (a * dx + b * dy))
+    dl_dmy = dl_dg * (-g * (c * dy + b * dx))
+    z = torch.clamp(blk[..., 9:10], min=1e-6)
+    gx = dl_dmx * (fx / z)
+    gy = dl_dmy * (fy / z)
+    gz = -(dl_dmx * fx * blk[..., 7:8] + dl_dmy * fy * blk[..., 8:9]) / (z * z)
+    if blk.shape[-1] >= NF_FULL:
+        t1 = dl_dg * g
+        ca = -0.5 * t1 * dx * dx
+        cb = -t1 * dx * dy
+        cc = -0.5 * t1 * dy * dy
+        jc = blk[..., 11:20]
+        gx = gx + ca * jc[..., 0:1] + cb * jc[..., 3:4] + cc * jc[..., 6:7]
+        gy = gy + ca * jc[..., 1:2] + cb * jc[..., 4:5] + cc * jc[..., 7:8]
+        gz = gz + ca * jc[..., 2:3] + cb * jc[..., 5:6] + cc * jc[..., 8:9]
+    return torch.stack([torch.where(live, v * v, zero).sum(-1)
+                        for v in (gx, gy, gz, dl_do)], dim=-1)
+
+
 def _fisher_walk(packed, pix_xy, nvalid, chunk: int, grad_value: float,
                  fx: float, fy: float):
     """fisher_slots_plain's body on (R, K, NF) rows (R = B*T, row r uses
     tile r % T); also returns the chunks walked per row (k_eff)."""
-    r_rows, k, nf = packed.shape
+    r_rows, k, _nf = packed.shape
     n_tiles = pix_xy.shape[0]
     p = pix_xy.shape[-1]
     dev = packed.device
@@ -114,30 +165,8 @@ def _fisher_walk(packed, pix_xy, nvalid, chunk: int, grad_value: float,
         suffix_inc = torch.flip(torch.cumsum(torch.flip(contrib, [1]), 1), [1])
         s_b = (suffix_inc - contrib) + s_behind[:, None, :]
 
-        inv_om = 1.0 / torch.clamp(one_minus, min=1e-2)
-        dl_da = grad_value * (t_before * csum - s_b * inv_om)
-        dl_da = torch.where(alpha > 0.0, dl_da, torch.zeros_like(dl_da))
-        dl_do = g * dl_da
-        dl_dg = blk[..., 5:6] * dl_da
-        a, b, c = blk[..., 2:3], blk[..., 3:4], blk[..., 4:5]
-        dl_dmx = dl_dg * (-g * (a * dx + b * dy))
-        dl_dmy = dl_dg * (-g * (c * dy + b * dx))
-        z = torch.clamp(blk[..., 9:10], min=1e-6)
-        gx = dl_dmx * (fx / z)
-        gy = dl_dmy * (fy / z)
-        gz = -(dl_dmx * fx * blk[..., 7:8] + dl_dmy * fy * blk[..., 8:9]) / (z * z)
-        if nf >= NF_FULL:
-            t1 = dl_dg * g
-            ca = -0.5 * t1 * dx * dx
-            cb = -t1 * dx * dy
-            cc = -0.5 * t1 * dy * dy
-            jc = blk[..., 11:20]
-            gx = gx + ca * jc[..., 0:1] + cb * jc[..., 3:4] + cc * jc[..., 6:7]
-            gy = gy + ca * jc[..., 1:2] + cb * jc[..., 4:5] + cc * jc[..., 7:8]
-            gz = gz + ca * jc[..., 2:3] + cb * jc[..., 5:6] + cc * jc[..., 8:9]
-        h[:, ci * chunk:(ci + 1) * chunk] = torch.stack(
-            [(gx * gx).sum(-1), (gy * gy).sum(-1), (gz * gz).sum(-1),
-             (dl_do * dl_do).sum(-1)], dim=-1)
+        h[:, ci * chunk:(ci + 1) * chunk] = _slot_rows(
+            blk, alpha, g, dx, dy, t_before, s_b, grad_value, fx, fy)
         s_behind = s_behind + contrib.sum(dim=1)
     return h, k_eff
 
@@ -152,6 +181,80 @@ def fisher_slots_plain(packed, pix_xy, nvalid, chunk: int, grad_value: float,
     h, _k_eff = _fisher_walk(packed.reshape(nb * n_tiles, k, nf), pix_xy,
                              nvalid.reshape(-1), chunk, grad_value, fx, fy)
     return h.reshape(nb, n_tiles, k, 4)
+
+
+def fisher_one_walk(packed, pix_xy, nvalid, chunk: int, grad_value: float,
+                    fx: float, fy: float):
+    """The kernel's algebra in plain PyTorch: `fisher_slots_plain`'s
+    function by two forward walks over the rows below nvalid.  Walk 1
+    carries T, stops the tile after the first chunk that leaves every
+    pixel's T below 1e-4 and totals C = sum alpha T csum per pixel; walk 2
+    takes the same rows with run = the inclusive prefix of that sum and
+    S_behind = C - run, where C is run's last value (the kernel's two
+    walks add in the same order, so C - run cancels only the suffix's own
+    rounding).  Same arguments and output as `fisher_slots_plain`."""
+    nb, n_tiles, k, nf = packed.shape
+    rows = packed.reshape(nb * n_tiles, k, nf)
+    pix = pix_xy.repeat(nb, 1, 1)                            # (R, 2, P)
+    alpha, g, dx, dy = _chunk_alpha(rows, pix[:, 0, None, :],
+                                    pix[:, 1, None, :])      # (R, K, P)
+    kk = torch.arange(k, device=packed.device)
+    nv = torch.clamp(nvalid.reshape(-1).long(), max=k)
+    zero = torch.zeros_like(alpha)
+    alpha = torch.where((kk[None, :] < nv[:, None])[..., None], alpha, zero)
+
+    # walk 1: T after each row; chunk m is walked iff m < ceil(nv / chunk)
+    # and every chunk before it left some pixel at T >= 1e-4
+    t_after = torch.cumprod(1.0 - alpha, dim=1)
+    t_before = torch.cat([torch.ones_like(t_after[:, :1]), t_after[:, :-1]],
+                         dim=1)
+    still_open = t_after[:, chunk - 1::chunk].amax(dim=-1) >= SATURATED_T
+    reached = torch.cat([torch.ones_like(still_open[:, :1]),
+                         still_open[:, :-1]], dim=1).long().cumprod(dim=1)
+    n_chunks = (nv + chunk - 1) // chunk
+    m = torch.arange(k // chunk, device=packed.device)
+    k_eff = ((reached > 0) & (m[None, :] < n_chunks[:, None])).sum(dim=1)
+    walked = (kk[None, :] < (k_eff * chunk)[:, None])[..., None]
+    alpha = torch.where(walked, alpha, zero)
+    g = torch.where(walked, g, zero)
+
+    # walk 2: S_behind = C - run
+    run = torch.cumsum(alpha * t_before * rows[..., 10:11], dim=1)
+    s_b = run[:, -1:, :] - run
+    h = _slot_rows(rows, alpha, g, dx, dy, t_before, s_b, grad_value, fx, fy)
+    return h.reshape(nb, n_tiles, k, 4)
+
+
+def fisher_row_boxes(packed):
+    """(..., K, 4) conservative pixel box [x0, x1, y0, y1] of each K3 row's
+    blend region (csrc/fisher.cu calls blend_common.cuh::row_box with no
+    valid column): every pixel at which `_chunk_alpha` gives alpha > 0
+    lies inside; empty for opacity below 1/255, so for invalid rows."""
+    return row_boxes(packed, valid_column=False)
+
+
+def fisher_warp_pixels(p: int):
+    """(P // 64, 64) long: the pixel indices (into a tile's P pixels,
+    row-major at a tile width of 32 for P >= 512 and 16 for P = 256) that
+    each warp of the kernel walks, lane-major, 2 per lane.  A lane holds a
+    2x1 pair and a warp 4 x 8 pairs, an 8x8 patch; the patches tile the
+    tile row-major (csrc/fisher.cu::warp_pixel)."""
+    tw = 32 if p >= 512 else 16
+    per_row = tw // 8
+    warp = torch.arange(p // PIXELS_PER_WARP)[:, None, None]
+    lane = torch.arange(32)[None, :, None]
+    i = torch.arange(PIXELS_PER_LANE)[None, None, :]
+    x = (warp % per_row) * 8 + (lane % 4) * 2 + i
+    y = (warp // per_row) * 8 + lane // 4 + 0 * i
+    return (y * tw + x).reshape(-1, PIXELS_PER_WARP)
+
+
+def fisher_warp_hits(boxes, pix_xy):
+    """(R, K, P // 64) bool: does row k's box reach the pixel range of the
+    patch that warp w walks?  boxes (R, K, 4), pix_xy (R, 2, P)."""
+    perm = fisher_warp_pixels(pix_xy.shape[-1]).reshape(-1)
+    return warp_hits(boxes, pix_xy[..., perm.to(pix_xy.device)],
+                     PIXELS_PER_WARP)
 
 
 def _check(cond: bool, msg: str):
@@ -184,23 +287,29 @@ def cuda_fisher_slots(packed, pix_xy, nvalid, chunk: int, grad_value: float,
     _check(p in (256, 512, 1024), f"{p} pixels per tile; the kernel takes "
            "256, 512 or 1024")
     _check(0 < chunk and k % chunk == 0, f"chunk {chunk} must divide K {k}")
-    smem = 4 * (chunk * nf + (k // chunk) * p + chunk * 4)
+    # the tile's rows at a float4 stride, a chunk of boxes and the warps'
+    # ballots of the rows that blend
+    warps = p // PIXELS_PER_WARP
+    smem = (16 * (k * ((nf + 3) // 4) + chunk)
+            + 4 * warps * (k // chunk) * ((chunk + 31) // 32))
     _check(smem <= 227 * 1024, f"{smem} bytes of shared memory")
     _check(packed.is_contiguous() and pix_xy.is_contiguous()
            and nvalid.is_contiguous(), "inputs must be contiguous")
     h = torch.empty(nb, n_tiles, k, 4, device=packed.device)
     if nb * n_tiles == 0:
         return h
+    # each warp's per-row sums over its patch, added in warp order at the end
+    sums = torch.empty(nb * n_tiles, warps, k, 4, device=packed.device)
     lib = cuda_build.load("fisher")
     fn = lib.fnc_fisher
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_float] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
         err = fn(packed.data_ptr(), pix_xy.data_ptr(), nvalid.data_ptr(),
-                 h.data_ptr(), nb * n_tiles, n_tiles, k, nf, p, chunk,
-                 float(grad_value), float(fx), float(fy), stream)
+                 sums.data_ptr(), h.data_ptr(), nb * n_tiles, n_tiles, k, nf,
+                 p, chunk, float(grad_value), float(fx), float(fy), stream)
     if err != 0:
         raise RuntimeError(f"fisher kernel launch failed: CUDA error {err}")
     launches += 1
