@@ -7,21 +7,33 @@ on one NVIDIA GPU.  Run from the repository root:
 Phases, one line each:
   build            compile every CUDA kernel (csrc/*.cu, one nvcc per
                    source, all in parallel) and print ptxas' register use;
-  slice            the main path at the full width of
-                   configs/mp3d_gaussian_FR_eccv.yaml: FakeSim on
-                   fake_apartment_0 (3x3 rooms) at 256x256, 120 scripted
-                   steps through GaussianSLAM.track_rgbd (12 mapping
-                   events of densify + 60 Adam steps of 2 frames, K1
-                   forward and K2 backward), then renders at 8 keyframe
-                   poses, H_train over all keyframes and 256 candidate
-                   poses scored by EIG.  The kernels' launch counts are
-                   zeroed just before and read just after; each must be
-                   > 0.  Mapping losses must be finite and fall within an
-                   event on average.  The first 32 candidates are scored
-                   again on the CPU by the plain twins as the reference
-                   (same argmax, Spearman >= 0.99);
-  probe            a map made by GaussianSLAM.track_rgbd over the first 60
-                   frames of the slice (6 mapping events with Adam); the
+  episode          the main path, first in the process: the port's entry
+                   point (cli.run_scene, as `python -m
+                   fisher_nerf_customized_tpu_torch` runs it) drives one
+                   FisherRF episode of ActiveMapper at the full width of
+                   configs/mp3d_gaussian_FR_eccv.yaml on FakeSim
+                   fake_apartment_0 (3x3 rooms, 256x256 RGB-D) for 100
+                   steps: the 9-step init scan, mapping events every 10
+                   steps (K1, K2), occupancy, and planning events (H_train
+                   and 256 candidates by EIG with K3 11-wide, the sweep
+                   field, the action compiler, path EIG over 20 paths with
+                   K3 20-wide).  The launch counts are zeroed just before
+                   and read just after: every kernel, K3's 20-wide variant
+                   counted apart, must be launched, and at least 2
+                   planning events must run.  Prints the wall time, steps
+                   per second, the per-phase timer, coverage_2d_pct and
+                   done_reason;
+  slice            the map-query path at the same width: 60 scripted steps
+                   through GaussianSLAM.track_rgbd (6 mapping events of
+                   densify + 60 Adam steps of 2 frames), then renders at 8
+                   keyframe poses, H_train over all keyframes and 256
+                   candidate poses scored by EIG.  Launch counts as above.
+                   Mapping losses must be finite and fall within an event
+                   on average.  The first 32 candidates are scored again
+                   on the CPU by the plain twins as the reference (same
+                   argmax, Spearman >= 0.99);
+  probe            the slice's map (60 frames, 6 mapping events with Adam;
+                   with --kernels-only the same map is built here); the
                    kernel phases below run on it;
   kernel_blend     K1 against its plain PyTorch twin on the card, at
                    T 256, K 256 and 512, C 4 and 5, with its rows walked
@@ -45,9 +57,20 @@ Phases, one line each:
                    event: each kernel phase times its wrapper's host work
                    per call (checks, allocations, the ctypes launch; no
                    synchronize between calls);
-  profile          device time by kernel over one more mapping event of the slice's map and
-                   over one planning query;
-  kernels          one line per kernel with its launches and max error.
+  plan_check       one more planning event on the episode's final state
+                   (ActiveMapper.plan_best_path), profiled: device time by
+                   kernel and the device's idle share; then on its inputs
+                   K3 20-wide at the path-EIG shape (B 20) against its
+                   plain twin on the card (timed, with its bound), its
+                   path-EIG scores against the plain twins on the CPU
+                   (same argmax and ranking, for the scores and for their
+                   point-EIG sums), and its sweep field against the CPU's
+                   (parent exact, cost to 1e-3); times the sweep field and
+                   one occupancy update on the card;
+  profile          device time by kernel over one more mapping event of
+                   the slice's map and over one planning query;
+  kernels          one line per kernel with its launches (the episode's)
+                   and max error; K3's 20-wide variant has its own line.
 Then one JSON line of per-kernel numbers, the card's name and power limit
 (nvidia-smi), and the last line {"ok": true, "device": {...}}.  Any
 failure raises: the exit code is then nonzero and no result line prints.
@@ -92,13 +115,22 @@ K2_FLOPS_PER_LIVE_PAIR = (FLOPS_PER_PAIR + 39, 4)      # 53 + 4C
 # products with the Jacobian added into gx, gy, gz (18).
 K3_FLOPS_PER_LIVE_PAIR = {11: 2 * FLOPS_PER_PAIR + 2 * 5 + 31,     # 69
                           20: 2 * FLOPS_PER_PAIR + 2 * 5 + 31 + 26}  # 95
-ACTIONS = [2] * 36 + [1] * 24 + [3] * 9 + [1] * 24 + [2] * 18 + [1] * 9
+# the slice's 60 scripted steps (the first 59 actions and the first frame)
+ACTIONS = ([2] * 36 + [1] * 24 + [3] * 9 + [1] * 24 + [2] * 18 + [1] * 9)[:59]
 EXTRA_ACTIONS = [2] * 10        # after the slice: one more mapping event
 N_PROBE_FRAMES = 60
-SCENE_SEED = zlib.crc32(b"fake_apartment_0") % (2 ** 31)
+SCENE = "fake_apartment_0"
+SCENE_SEED = zlib.crc32(SCENE.encode()) % (2 ** 31)
+EPISODE_STEPS = 100
+MIN_PLANNING_EVENTS = 2
+
+
+T_START = time.perf_counter()
 
 
 def phase(tag, /, **fields):
+    """One phase line, with the seconds since the script started."""
+    fields = dict(fields, at_s=f"{time.perf_counter() - T_START:.1f}")
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
 
@@ -295,6 +327,252 @@ def step(slam, obs, events):
                 n_active=slam.n_active))
 
 
+def run_episode(log_dir):
+    """The port's entry point on SCENE for EPISODE_STEPS steps, on the card:
+    (result, mapper, wall seconds, launches by kernel)."""
+    import torch
+    from fisher_nerf_customized_tpu_torch import cli
+    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
+                                                      cuda_blend_bwd,
+                                                      cuda_fisher)
+    args = cli.build_parser().parse_args([
+        "--slam_config", os.path.join(HERE, "configs",
+                                      "mp3d_gaussian_FR_eccv.yaml"),
+        "--scenes_list", SCENE, "--max_steps", str(EPISODE_STEPS),
+        "--log_dir", log_dir, "--name", "episode"])
+    cfg = cli.load_config(args)
+    cuda_blend.launches = 0
+    cuda_blend_bwd.launches = 0
+    cuda_fisher.launches = 0
+    cuda_fisher.launches_full = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result, mapper = cli.run_scene(args, cfg, SCENE)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(blend=cuda_blend.launches,
+                    blend_bwd=cuda_blend_bwd.launches,
+                    fisher=cuda_fisher.launches - cuda_fisher.launches_full,
+                    fisher_nf20=cuda_fisher.launches_full)
+    return result, mapper, wall_s, launches
+
+
+def capture_planning_event(mapper):
+    """One more planning event on the mapper's current state, with the
+    arguments and scores of its path-EIG call: (actions, captured dict)."""
+    from fisher_nerf_customized_tpu_torch.engine import driver
+    captured = {}
+    score_fn = driver.path_eig_scores
+
+    def recording(*args, **kwargs):
+        captured["args"], captured["kwargs"] = args, kwargs
+        captured["scores"] = score_fn(*args, **kwargs)
+        return captured["scores"]
+
+    driver.path_eig_scores = recording
+    try:
+        mapper.planner._search_key = None          # a fresh sweep field
+        actions, _path = mapper.plan_best_path(
+            np.asarray(mapper.sim.c2w, np.float64), 1,
+            mapper.slam.frame_idx + 1)
+    finally:
+        driver.path_eig_scores = score_fn
+    return actions, captured
+
+
+def kernel_of(key):
+    """The kernel a profiler row belongs to: blend, blend_bwd, fisher (K3
+    11-wide), fisher_nf20 (K3 20-wide, the template's FULL = true), or
+    None."""
+    if "blend_bwd_kernel" in key:
+        return "blend_bwd"
+    if "blend_kernel" in key:
+        return "blend"
+    if "fisher_kernel" in key:
+        full = "<true>" in key or "<(bool)1>" in key
+        return "fisher_nf20" if full else "fisher"
+    return None
+
+
+def check_planning_event(mapper, cap, report):
+    """On the captured planning event: K3 20-wide against its plain twin at
+    the path-EIG shape (the first acc step's 20 path poses), timed, with
+    its bound; the event's path-EIG scores against the plain twins on the
+    CPU (same argmax and ranking); its sweep field against the CPU's."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.engine.path_eval import (
+        combine_path_scores, path_point_eig_totals)
+    from fisher_nerf_customized_tpu_torch.models.gaussian_state import (
+        GaussianState)
+    from fisher_nerf_customized_tpu_torch.ops import cuda_fisher
+    from fisher_nerf_customized_tpu_torch.ops.fisher import (
+        fisher_kernel_inputs)
+    from fisher_nerf_customized_tpu_torch.planning.astar import (
+        _collision_cost)
+    from fisher_nerf_customized_tpu_torch.planning.occupancy import (
+        occ_update)
+    from fisher_nerf_customized_tpu_torch.planning.sweep import sweep_field
+    from fisher_nerf_customized_tpu_torch.utils.raster import distance_l1
+    slam, planner = mapper.slam, mapper.planner
+    (state, h_train, w2cs, valid, lengths, final, camera, settings, lam,
+     pose_w, point_w, end_w, vol_w, cnt, grad_value) = cap["args"]
+    out = {}
+
+    # K3 20-wide on the first acc step's poses, as path EIG launches it
+    params = state.params()
+    active = state.active
+    packed, pix_xy, nvalid, _bins, _prep = fisher_kernel_inputs(
+        camera, w2cs[:, 0], params["means3D"], torch.exp(params["log_scales"]),
+        params["unnorm_rotations"],
+        torch.sigmoid(params["logit_opacities"][:, 0]), params["rgb_colors"],
+        active=active, settings=settings, full_chain=True)
+    args = (packed, pix_xy, nvalid, settings.chunk, grad_value, camera.fx,
+            camera.fy)
+    got = cuda_fisher.cuda_fisher_slots(*args)
+    nb, n_tiles, k, nf = packed.shape
+    ref, k_eff = cuda_fisher._fisher_walk(
+        packed.reshape(nb * n_tiles, k, nf), pix_xy, nvalid.reshape(-1),
+        settings.chunk, grad_value, camera.fx, camera.fy)
+    ref = ref.reshape(got.shape)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    scale = float(ref.abs().max())
+    # tolerance as in the kernel phase: rtol 5e-3 plus 1e-6 of the largest
+    bad = err > 5e-3 * ref.abs() + 1e-6 * scale
+    if nf != cuda_fisher.NF_FULL or scale <= 0 or bool(bad.any()):
+        raise AssertionError(f"K3 NF={nf} on the path-EIG poses: "
+                             f"{int(bad.sum())} rows off, max err "
+                             f"{float(err.max())} of {scale}")
+    launch = functools.partial(cuda_fisher.cuda_fisher_slots, *args)
+    p = pix_xy.shape[-1]
+    rows = int(torch.minimum(k_eff * settings.chunk,
+                             nvalid.reshape(-1).long()).sum())
+    n_bytes = (rows * nf + n_tiles * 2 * p + nb * n_tiles
+               + nb * n_tiles * k * 4) * 4
+    pairs = fisher_pair_counts(packed, pix_xy, nvalid, k_eff, settings.chunk)
+    bms, bby = bound_ms(n_bytes, pairs["pairs_live"]
+                        * K3_FLOPS_PER_LIVE_PAIR[nf])
+    out["k3_nf20"] = dict(
+        B=nb, T=n_tiles, K=k, P=p, chunk=settings.chunk,
+        max_abs_err=float(err.max()), max_value=scale,
+        ms=kernel_device_ms(launch, "fisher_kernel", 20),
+        ms_events=cuda_ms(launch, 20), host_ms=host_ms(launch, 100),
+        plain_ms=cuda_ms(lambda: cuda_fisher.fisher_slots_plain(*args), 3),
+        bound_ms=bms, bound_by=bby, rows_needed=rows, **pairs)
+    del packed, got, ref, err
+
+    # the event's path-EIG scores against the plain twins on the CPU.  At
+    # the eccv config the final-EIG term (weight 30) dominates the scores,
+    # so the point-EIG sums, the part the Fisher renders make, are also
+    # compared on their own: by ranking and argmax, as EIG across devices
+    # (ROADMAP.md, queue 3 item g)
+    n_paths = int(np.isfinite(final.cpu().numpy()).sum())
+    point_args = (lam, point_w, vol_w, cnt, grad_value)
+    card_totals = path_point_eig_totals(state, h_train, w2cs, valid, camera,
+                                        settings, *point_args)
+    # (the CPU twins score the real paths only: each path's rows depend on
+    # its own poses alone, and the padding would double the CPU's work)
+    cpu_totals = path_point_eig_totals(
+        GaussianState(*(x.cpu() for x in state)), h_train.cpu(),
+        w2cs[:n_paths].cpu(), valid[:n_paths].cpu(), camera, settings,
+        *point_args)
+    cpu_scores = combine_path_scores(cpu_totals, lengths[:n_paths].cpu(),
+                                     final[:n_paths].cpu(), end_w).numpy()
+    card = cap["scores"].cpu().numpy()[:n_paths]
+    card_totals = card_totals.cpu().numpy()[:n_paths]
+    cpu_totals = cpu_totals.numpy()
+
+    def spearman(a, b):
+        rank = lambda x: np.argsort(np.argsort(x))
+        if len(a) > 2:
+            return float(np.corrcoef(rank(a), rank(b))[0, 1])
+        return float(np.array_equal(rank(a), rank(b)))
+
+    out.update(n_paths=n_paths, path_scores=card.tolist(),
+               path_scores_cpu=cpu_scores.tolist(),
+               path_rel_err_max=float(np.max(np.abs(card - cpu_scores)
+                                             / np.abs(cpu_scores))),
+               path_spearman=spearman(card, cpu_scores),
+               path_argmax=int(card.argmax()),
+               point_totals=card_totals.tolist(),
+               point_totals_cpu=cpu_totals.tolist(),
+               point_rel_err_max=float(np.max(
+                   np.abs(card_totals - cpu_totals) / np.abs(cpu_totals))),
+               point_spearman=spearman(card_totals, cpu_totals))
+    for what, a, b in (("scores", card, cpu_scores),
+                       ("point-EIG sums", card_totals, cpu_totals)):
+        if int(a.argmax()) != int(b.argmax()) or spearman(a, b) < 0.99:
+            raise AssertionError(f"path-EIG {what} off the CPU twins: card "
+                                 f"{a}, CPU {b}")
+
+    # the event's sweep field against the CPU's
+    search = planner._search
+    (y0, y1), (x0, x1) = search.window
+    free = planner.free_space_np[y0:y1, x0:x1].astype(bool)
+    tier = _collision_cost(distance_l1(planner.free_space_np.astype(
+        np.uint8)))[y0:y1, x0:x1]
+    start = (search.start[0] - y0, search.start[1] - x0)
+    cpu_cost, cpu_parent, cpu_rounds = sweep_field(
+        torch.from_numpy(free), torch.from_numpy(tier.astype(np.float32)),
+        start)
+    cost = search._cost_dev.cpu()
+    parent = search._parent_dev.cpu()
+    cost_err = float((cost - cpu_cost).abs().max())
+    if (not torch.equal(parent, cpu_parent) or cost_err > 1e-3
+            or search.rounds != cpu_rounds):
+        raise AssertionError(f"sweep field off the CPU's: parent differs at "
+                             f"{int((parent != cpu_parent).sum())} cells, "
+                             f"cost by {cost_err}, rounds {search.rounds} "
+                             f"vs {cpu_rounds}")
+    # its time on the card: wall (host clock around a synchronized run)
+    # and device time (the profiler's kernel rows of another run)
+    dev = search._cost_dev.device
+    free_d = torch.from_numpy(free).to(dev)
+    tier_d = torch.from_numpy(tier.astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep_field(free_d, tier_d, start)
+    torch.cuda.synchronize()
+    sweep_wall_ms = (time.perf_counter() - t0) * 1e3
+    sweep_ms, sweep_launches = device_ms_and_launches(
+        lambda: sweep_field(free_d, tier_d, start))
+    out.update(sweep_window=[y1 - y0, x1 - x0], sweep_rounds=search.rounds,
+               sweep_cost_err=cost_err, sweep_parent_equal=True,
+               sweep_wall_ms=sweep_wall_ms, sweep_device_ms=sweep_ms,
+               sweep_kernel_launches=sweep_launches,
+               sweep_reached=int((cost < 3e38).sum()))
+
+    # one occupancy update (the episode's last frame) on the card
+    obs = mapper.sim.get_observations()
+    occ_args = (planner.occ_map, obs["depth"],
+                torch.as_tensor(obs["c2w"], device=dev), planner.camera,
+                planner.cell_size, planner._map_center_dev,
+                planner.height_lower, planner.height_upper,
+                planner.pcd_far_distance)
+    occ_ms, occ_launches = device_ms_and_launches(
+        lambda: occ_update(*occ_args))
+    out.update(occupancy_device_ms=occ_ms, occupancy_launches=occ_launches,
+               occupancy_events_ms=cuda_ms(lambda: occ_update(*occ_args), 20))
+    return out
+
+
+def device_ms_and_launches(fn):
+    """Device time (ms, the profiler's kernel rows) and kernel launches of
+    one call of fn, after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    if not rows:
+        return None, 0
+    return (sum(e.self_device_time_total for e in rows) / 1e3,
+            sum(e.count for e in rows))
+
+
 def bound_ms(n_bytes, n_ops):
     t_bytes, t_ops = n_bytes / MEM_BW * 1e3, n_ops / FP32_PEAK * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -370,9 +648,48 @@ def main(argv=None):
                                    float(ex.min_range), sim.cam_height,
                                    np.random.default_rng(seed))
 
-    # ---- slice (the main path), first, in a process that has not yet run
-    # anything else: the probe and the kernel phases before it slowed its
-    # host-bound mapping events (PERF.md)
+    # ---- episode (the main path), first, in a process that has not yet run
+    # anything else: run after the probe and the kernel phases, host-bound
+    # mapping events read 1.7x slower (PERF.md)
+    if not opts.kernels_only:
+        result, mapper, ep_wall_s, ep_launches = run_episode(
+            os.path.join(HERE, "experiments", "chip_smoke"))
+        timing = result["timing"]
+        ep_row = dict(
+            steps=result["steps"], done_reason=result["done_reason"],
+            wall_s=ep_wall_s, steps_per_s=result["steps"] / ep_wall_s,
+            planning_events=result["planning_events"],
+            coverage_2d_pct=result["coverage_2d_pct"],
+            n_gaussians=result["n_gaussians"],
+            n_keyframes=result["n_keyframes"],
+            stuck_total=result["stuck_total"],
+            **{f"launches_{k}": v for k, v in ep_launches.items()})
+        report["episode"] = dict(ep_row, timing=timing,
+                                 plan_log=[dict(t=e["t"], best=e["best"],
+                                                n_paths=len(e["scores"]))
+                                           for e in mapper.plan_log])
+        phase("episode", **fmt(ep_row))
+        for name in ("tracking_mapping", "occupancy", "planning",
+                     "plan.global", "plan.sweep", "plan.global.wait",
+                     "plan.actions", "plan.h_train", "plan.rollout",
+                     "plan.path_eig", "prewarm", "sim_step", "habvis"):
+            if name in timing:
+                print(f"  timer {name}: {timing[name]}")
+        if result["steps"] != EPISODE_STEPS:
+            raise AssertionError(f"the episode ended at step {result['steps']}"
+                                 f" ({result['done_reason']})")
+        if result["planning_events"] < MIN_PLANNING_EVENTS:
+            raise AssertionError(f"{result['planning_events']} planning "
+                                 f"events, expected >= {MIN_PLANNING_EVENTS}")
+        if min(ep_launches.values()) <= 0:
+            raise AssertionError(f"a kernel was not launched in the episode: "
+                                 f"{ep_launches}")
+        if not all(np.isfinite(e["scores"]).all() for e in mapper.plan_log):
+            raise AssertionError("non-finite path-EIG scores")
+        if not 0.0 < result["coverage_2d_pct"] <= 100.0:
+            raise AssertionError(f"coverage {result['coverage_2d_pct']}")
+
+    # ---- slice (the map-query path)
     if not opts.kernels_only:
         cuda_blend.launches = 0
         cuda_blend_bwd.launches = 0
@@ -490,7 +807,10 @@ def main(argv=None):
         phase("slice", **fmt(slice_row))
 
     t0 = time.perf_counter()
-    probe, probe_sim = run_slam(cfg, dev, ACTIONS[:N_PROBE_FRAMES - 1])
+    if opts.kernels_only:
+        probe, probe_sim = run_slam(cfg, dev, ACTIONS[:N_PROBE_FRAMES - 1])
+    else:               # the slice's map: the same 60 frames
+        probe, probe_sim = slam, sim
     torch.cuda.synchronize()
     phase("probe", frames=N_PROBE_FRAMES, n_active=probe.n_active,
           keyframes=len(probe.keyframes),
@@ -791,15 +1111,43 @@ def main(argv=None):
                 and e.self_device_time_total > 0]
         rows.sort(key=lambda r: -r[1])
         total = sum(ms for _k, ms, _n in rows)
-        by_kernel = {name: sum(ms for key, ms, _n in rows if f"{name}_kernel"
-                               in key) for name in entries}
+        names = ("blend", "blend_bwd", "fisher", "fisher_nf20")
+        by_kernel = {name: sum(ms for key, ms, _n in rows
+                               if kernel_of(key) == name) for name in names}
+        launches_by_kernel = {name: sum(n for key, _ms, n in rows
+                                        if kernel_of(key) == name)
+                              for name in names}
+        idle = 1.0 - total / wall_ms if rows else None
         report[f"profile_{tag}"] = dict(device_ms=total, wall_ms=wall_ms,
-                                        kernel_ms=by_kernel, top=rows[:16])
+                                        idle_share=idle, kernel_ms=by_kernel,
+                                        kernel_launches=launches_by_kernel,
+                                        top=rows[:16])
         phase("profile", query=tag, wall_ms=f"{wall_ms:.4g}",
               device_ms=f"{total:.4g}" if rows else "not measured",
+              idle_share=f"{idle:.4g}" if rows else "not measured",
               **{f"{name}_ms": f"{ms:.4g}" for name, ms in by_kernel.items()})
         for key, ms, n in rows[:10]:
             print(f"  {ms:9.3f} ms  x{n:<6d} {key[:80]}")
+        return rows
+
+    # ---- plan_check: one more planning event on the episode's state --------
+    plan_rows = []
+    profiled("planning_event", lambda: plan_rows.append(
+        capture_planning_event(mapper)))
+    actions, cap = plan_rows[0]
+    if not actions or "args" not in cap:
+        raise AssertionError("the extra planning event found no path")
+    report["plan_check"] = check_planning_event(mapper, cap, report)
+    phase("plan_check", **fmt({k: v for k, v in report["plan_check"].items()
+                               if not isinstance(v, (list, dict))}))
+    nf20 = report["plan_check"]["k3_nf20"]
+    entries["fisher_nf20"] = dict(
+        name="fisher_nf20", route="cuda",
+        source="fisher_nerf_customized_tpu_torch/csrc/fisher.cu",
+        replaces="fisher_nerf_customized_tpu/ops/pallas_fisher.py:90",
+        max_abs_err=nf20["max_abs_err"], ms=nf20["ms"],
+        plain_ms=nf20["plain_ms"], bound_ms=nf20["bound_ms"],
+        bound_by=nf20["bound_by"], library_ms=None)
 
     # one more mapping event on the mapped map (the next map_every steps)
     profiled("mapping_event", lambda: [
@@ -810,7 +1158,7 @@ def main(argv=None):
 
     # ---- kernels ----------------------------------------------------------
     for name, e in entries.items():
-        e["launches"] = launches[name]
+        e["launches"] = ep_launches[name]
         phase("kernels", name=name, launches=e["launches"],
               max_abs_err=f"{e['max_abs_err']:.3g}", ms=f"{e['ms']:.4g}")
     report["kernels"] = list(entries.values())

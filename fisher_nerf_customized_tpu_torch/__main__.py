@@ -1,0 +1,5 @@
+"""`python -m fisher_nerf_customized_tpu_torch ...`: see cli.py."""
+from .cli import main
+
+if __name__ == "__main__":
+    main()

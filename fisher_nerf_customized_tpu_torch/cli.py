@@ -1,0 +1,176 @@
+"""Command-line entry point of the PyTorch port: one active-mapping
+episode per scene on the hermetic FakeSim, one JSON line per scene.
+
+    python -m fisher_nerf_customized_tpu_torch \\
+        --slam_config configs/mp3d_gaussian_FR_eccv.yaml \\
+        --scenes_list fake_apartment_0 --max_steps 100
+
+The flags are the JAX package's (cli.py); the episode runs on the card
+unless `--device cpu` is given.  Scene ids: `fake_apartment_<n>` (3x3
+rooms) or `fake_apartment<X>x<Z>_<n>` (X x Z rooms), any other id a
+single box room; the scene's seed is the crc32 of its id.  Not ported
+yet (ROADMAP.md), and so raising NotImplementedError: `--sim habitat`,
+`--object_scene`, `--dynamic_scene`, `--known_env`, `--resume`, the
+evaluation after the episode (`--eval_poses` above 0; the port's default
+is 0), `--eval_every`, `--lpips_weights`, `--dino_gate`,
+`--dino_weights` and `--ensemble_dir`.
+"""
+from __future__ import annotations
+
+import argparse
+import ast
+import json
+import os
+import re
+import zlib
+
+_NOT_PORTED = ("{} is not ported to the PyTorch package yet (ROADMAP.md, "
+               "queue 1)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("fisher_nerf_customized_tpu_torch")
+    req = p.add_argument_group("Required")
+    req.add_argument("--name", default="test_pointnav_exp")
+    req.add_argument("--slam_config", type=str, default=None,
+                     help="experiment YAML (reference-format keys)")
+    req.add_argument("--dataset", type=str, default="fake",
+                     help="mp3d | hm3d | gibson | fake")
+    req.add_argument("--dataset_split", type=str, default="val")
+    p.add_argument("--scenes_list", nargs="+", default=["fake_room_0"])
+    p.add_argument("--sim", type=str, default="fake",
+                   choices=["fake", "habitat"])
+    p.add_argument("--policy", type=str, default=None,
+                   help="override cfg.policy.name")
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--img_size", type=int, default=None)
+    p.add_argument("--log_dir", default="experiments/logs")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--debug", action="store_true",
+                   help="cap num_frames at 40 and mapping iterations at 10")
+    # the evaluation after the episode is not ported: 0 (the default)
+    # skips it, as in the JAX package
+    p.add_argument("--eval_poses", type=int, default=0)
+    p.add_argument("--eval_every", type=int, default=None)
+    p.add_argument("--save_data", action="store_true")
+    p.add_argument("--ensemble_dir", default=None)
+    p.add_argument("--object_scene", action="store_true")
+    p.add_argument("--dynamic_scene", action="store_true")
+    p.add_argument("--known_env", action="store_true")
+    p.add_argument("--lpips_weights", default=None)
+    p.add_argument("--dino_gate", action="store_true")
+    p.add_argument("--dino_weights", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the episode (cuda unless asked)")
+    p.add_argument("--set", dest="opts", nargs="*", default=None,
+                   action="append", metavar="KEY VALUE",
+                   help="config overrides applied last: KEY VALUE "
+                        "[KEY VALUE ...] (dotted keys; the flag may repeat)")
+    return p
+
+
+def _check_ported(args):
+    unported = [(args.sim != "fake", f"--sim {args.sim}"),
+                (args.object_scene, "--object_scene"),
+                (args.dynamic_scene, "--dynamic_scene"),
+                (args.known_env, "--known_env"),
+                (args.resume, "--resume"),
+                (args.eval_poses > 0,
+                 "The episode evaluation (--eval_poses above 0)"),
+                (args.eval_every is not None, "--eval_every"),
+                (args.lpips_weights is not None, "--lpips_weights"),
+                (args.dino_gate or args.dino_weights is not None,
+                 "The DINO gate (--dino_gate, --dino_weights)"),
+                (args.ensemble_dir is not None, "--ensemble_dir")]
+    for on, what in unported:
+        if on:
+            raise NotImplementedError(_NOT_PORTED.format(what))
+
+
+def load_config(args):
+    from .config import get_cfg_defaults
+    cfg = get_cfg_defaults()
+    if args.slam_config:
+        cfg.merge_from_file(args.slam_config)
+    if args.log_dir:
+        cfg.workdir = args.log_dir
+    if args.name:
+        cfg.run_name = args.name
+    if args.policy:
+        cfg.policy.name = args.policy
+    if args.max_steps is not None:
+        cfg.num_frames = args.max_steps
+    if args.img_size is not None:
+        cfg.img_height = cfg.img_width = args.img_size
+        cfg.SLAM.Dataset.Calibration.merge_from_other(dict(
+            width=args.img_size, height=args.img_size,
+            fx=args.img_size / 2, fy=args.img_size / 2,
+            cx=args.img_size / 2, cy=args.img_size / 2))
+    if args.debug:
+        cfg.mapping.num_iters = min(int(cfg.mapping.num_iters), 10)
+        cfg.num_frames = min(int(cfg.num_frames), 40)
+    if args.opts:
+        flat = [v for group in args.opts for v in group]
+        vals = []
+        for i, v in enumerate(flat):
+            if i % 2 == 1:
+                try:
+                    v = ast.literal_eval(v)
+                except (ValueError, SyntaxError):
+                    pass
+            vals.append(v)
+        cfg.merge_from_list(vals)
+    return cfg
+
+
+def make_sim(args, cfg, scene_id: str):
+    """FakeSim and its BoxScene for a scene id: `fake_apartment*` ids the
+    multi-room generator (`fake_apartment<X>x<Z>` sets the grid of
+    rooms, 3x3 by default), any other id the single-room default; the
+    scene's seed is the crc32 of the id (stable across processes)."""
+    from .envs.fake_sim import BoxScene, FakeSim
+    from .ops.camera import Camera
+    calib = cfg.SLAM.Dataset.Calibration
+    cam = Camera(fx=float(calib.fx), fy=float(calib.fy),
+                 cx=float(calib.cx), cy=float(calib.cy),
+                 width=int(calib.width), height=int(calib.height))
+    seed = zlib.crc32(scene_id.encode()) % (2 ** 31)
+    if scene_id.startswith("fake_apartment"):
+        m = re.match(r"fake_apartment(\d+)x(\d+)", scene_id)
+        rx, rz = (int(m.group(1)), int(m.group(2))) if m else (3, 3)
+        scene = BoxScene.multi_room(seed=seed, rooms_x=rx, rooms_z=rz)
+    else:
+        scene = BoxScene.default(seed=seed)
+    sim = FakeSim(scene, cam, forward_step=float(cfg.forward_step_size),
+                  turn_angle=float(cfg.turn_angle), seed=args.seed,
+                  device=args.device)
+    return sim, scene
+
+
+def run_scene(args, cfg, scene_id: str):
+    """One episode on one scene: (result dict, the ActiveMapper).  Writes
+    result.json under <log_dir>/<name>/<scene_id>/."""
+    from .engine.driver import ActiveMapper
+    sim, scene = make_sim(args, cfg, scene_id)
+    eval_dir = os.path.join(cfg.workdir, cfg.run_name, scene_id)
+    mapper = ActiveMapper(cfg, sim, scene=scene, eval_dir=eval_dir,
+                          seed=args.seed, scene_id=scene_id,
+                          device=args.device)
+    result = mapper.test_navigation()
+    with open(os.path.join(eval_dir, "result.json"), "w") as f:
+        json.dump(result, f, indent=2, default=float)
+    return result, mapper
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    _check_ported(args)
+    cfg = load_config(args)
+    results = {}
+    for scene_id in args.scenes_list:
+        result, _mapper = run_scene(args, cfg, scene_id)
+        results[scene_id] = result
+        print(json.dumps({scene_id: result}, default=float), flush=True)
+    return results

@@ -137,6 +137,18 @@ class BoxScene:
                 return False
         return True
 
+    def gt_free_map(self, cell_size: float, grid_dim, map_center) -> np.ndarray:
+        """Top-down (Gz, Gx) bool grid of navigable cell centres, the
+        denominator of 2D coverage."""
+        gx, gz = int(grid_dim[0]), int(grid_dim[1])
+        xs = (np.arange(gx) + 0.5 - gx // 2) * cell_size + map_center[0]
+        zs = (np.arange(gz) + 0.5 - gz // 2) * cell_size + map_center[1]
+        free = np.zeros((gz, gx), bool)
+        for iz, z in enumerate(zs):
+            for ix, x in enumerate(xs):
+                free[iz, ix] = self.is_navigable((x, 0.0, z))
+        return free
+
 
 def _raycast_device(lo, hi, inward, seeds, c2w, camera: Camera):
     """Per-pixel nearest-hit AABB raycast in plain torch on the tensors'
@@ -197,13 +209,14 @@ def _raycast_device(lo, hi, inward, seeds, c2w, camera: Camera):
 
 class FakeSim:
     """Embodied sim over a BoxScene: reset / step / get_observations /
-    set_pose / render_at, with actions 1 = fwd, 2 = left, 3 = right.
+    set_pose / render_at / intrinsics, with actions 1 = fwd, 2 = left,
+    3 = right.
     Observations are dict(rgb (H, W, 3), depth (H, W)) tensors on
     `device` plus the host c2w."""
 
     def __init__(self, scene: BoxScene, camera: Camera,
                  forward_step: float = 0.065, turn_angle: float = 10.0,
-                 cam_height: float = 1.25, device="cuda"):
+                 cam_height: float = 1.25, seed: int = 0, device="cuda"):
         self.scene = scene
         self.camera = camera
         self.forward_step = float(forward_step)
@@ -215,6 +228,7 @@ class FakeSim:
                        torch.as_tensor(b.hi, device=self.device),
                        torch.as_tensor(b.inward, device=self.device),
                        torch.as_tensor(b.color_seed, device=self.device))
+        self.rng = np.random.default_rng(seed)
         self.c2w = np.eye(4, dtype=np.float32)
         self.collided_last = False
         self.reset()
@@ -262,3 +276,7 @@ class FakeSim:
 
     def is_navigable(self, pos) -> bool:
         return self.scene.is_navigable(pos)
+
+    @property
+    def intrinsics(self) -> np.ndarray:
+        return self.camera.intrinsics

@@ -10,7 +10,8 @@ opacity prune, one compaction at the end).  The map is rendered at poses
 (`_render_rgbd`, `_render_pose`) and scored by Fisher information
 (`_fisher_batch`, `_pose_scores`).  `GaussianSLAM` keeps the reference's
 host API: init / track_rgbd (ground-truth poses) / render_at_pose(s) /
-compute_Hessian / compute_H_train / pose_eval(_async) / save / load.
+compute_Hessian / compute_H_train / pose_eval(_async) / gaussian_points /
+save / load.
 Optimized tracking, gradient clone/split densification and the
 mesh-sharded mapping phase are not ported yet (ROADMAP.md) and raise
 NotImplementedError.
@@ -443,6 +444,17 @@ class GaussianSLAM:
         self._n_active_cache = (self._state_epoch, n)
         return n
 
+    @property
+    def gaussian_points(self) -> np.ndarray:
+        """Active world-frame means (N, 3) as numpy, for the planner;
+        pulled once per state version."""
+        c = getattr(self, "_gpts_cache", None)
+        if c is not None and c[0] == self._state_epoch:
+            return c[1]
+        pts = self.state.means3D[:self.n_active].detach().cpu().numpy()
+        self._gpts_cache = (self._state_epoch, pts)
+        return pts
+
     def _maybe_bump_tile_capacity(self, overflow: int, n_renders: int):
         """Adaptive per-tile capacity: double `max_per_tile` (up to
         tpu.max_per_tile_limit) when the truncated fraction of splat-tile
@@ -706,6 +718,11 @@ class GaussianSLAM:
             h_train = h_train + out["H"][:n_real].sum(dim=0)
         return h_train
 
+    def prewarm_H_train(self):
+        """Launch H_train ahead of a planning event (the result is cached;
+        the same keyframes and parameters give the same sum)."""
+        self.compute_H_train()
+
     def pose_eval_async(self, poses, random_gaussian_params=None):
         """Launch EIG scoring for all candidate c2w poses and return a
         `resolve()` closure giving (scores (P,), poses (P, 4, 4))."""
@@ -730,6 +747,13 @@ class GaussianSLAM:
     def pose_eval(self, poses, random_gaussian_params=None):
         """EIG score per candidate c2w pose: sum(H_pose / (H_train + 0.1))."""
         return self.pose_eval_async(poses, random_gaussian_params)()
+
+    def gs_pts_cnt(self):
+        return max(self.n_active, 1)
+
+    def get_latest_frame(self):
+        """(4, 4) c2w of the latest tracked frame."""
+        return np.linalg.inv(self.poses_w2c[self.frame_idx])
 
     # checkpointing ---------------------------------------------------------
     def save(self, time_idx: int):

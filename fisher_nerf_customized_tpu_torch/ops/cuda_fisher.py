@@ -42,8 +42,10 @@ SATURATED_T = 1e-4
 PIXELS_PER_LANE = 2
 PIXELS_PER_WARP = 32 * PIXELS_PER_LANE
 
-# Launches of the CUDA kernel (not of the plain twin).
+# Launches of the CUDA kernel (not of the plain twin), and of those the
+# launches of its 20-wide (full-chain) variant.
 launches = 0
+launches_full = 0
 
 
 def pack_fisher_features(prep, bins, opacities, colors, means_cam,
@@ -267,7 +269,7 @@ def cuda_fisher_slots(packed, pix_xy, nvalid, chunk: int, grad_value: float,
     """K3 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain twin for CPU tensors.  Same arguments and outputs as
     `fisher_slots_plain`; an NF of 20 selects the full-chain variant."""
-    global launches
+    global launches, launches_full
     if packed.device.type == "cpu":
         return fisher_slots_plain(packed, pix_xy, nvalid, chunk, grad_value,
                                   fx, fy)
@@ -313,4 +315,5 @@ def cuda_fisher_slots(packed, pix_xy, nvalid, chunk: int, grad_value: float,
     if err != 0:
         raise RuntimeError(f"fisher kernel launch failed: CUDA error {err}")
     launches += 1
+    launches_full += nf == NF_FULL
     return h

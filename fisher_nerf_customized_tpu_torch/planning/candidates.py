@@ -2,11 +2,16 @@
 
 A ring of K poses around xz center points, each looking back at its
 center (the reference's generate_candidate: theta+pi yaw, then the x/y
-column flips of the CV camera frame).
+column flips of the CV camera frame); uniform poses over the eroded free
+space when no frontier is left; random Gaussians above frontier cells.
+Each function draws from the caller's numpy generator in the JAX
+package's order, so one seed gives both packages the same poses.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ..utils.raster import erode_square
 
 
 def _yaw_rotmat(theta):
@@ -44,3 +49,60 @@ def generate_candidates(center_points: np.ndarray, k: int, radius: float,
     c2ws[:, :3, 3] = pos
     c2ws[:, 3, 3] = 1.0
     return c2ws
+
+
+def sample_random_candidates(agent_pos: np.ndarray, free_space: np.ndarray,
+                             grid_dim, cell_size: float, map_center,
+                             rng: np.random.Generator,
+                             erode_iter: int = 11) -> np.ndarray:
+    """Uniform random poses over the eroded free space (the reference's
+    sample_random_candidate: erode 11x11, keep 1/4 of the cells, random
+    yaw)."""
+    eroded = erode_square(free_space, erode_iter)
+    mz, mx = np.where(eroded == 1)
+    if len(mz) == 0:
+        return np.zeros((0, 4, 4), np.float32)
+    wz = (mz + 0.5 - grid_dim[1] // 2) * cell_size + map_center[1]
+    wx = (mx + 0.5 - grid_dim[0] // 2) * cell_size + map_center[0]
+    sel = rng.choice(len(wz), max(len(wz) // 4, 1))
+    wx, wz = wx[sel], wz[sel]
+
+    theta = rng.uniform(0.0, 2 * np.pi, len(wx))
+    R = _yaw_rotmat(theta)
+    poses = np.zeros((len(wx), 4, 4), np.float32)
+    poses[:, :3, :3] = R
+    poses[:, :3, 3] = np.stack(
+        [wx, np.full_like(wx, agent_pos[1]), wz], -1)
+    poses[:, 3, 3] = 1.0
+    # the CV-frame axis flips of the reference (random_pose[:, :, 1|2] *= -1)
+    poses[:, :, 1] *= -1.0
+    poses[:, :, 2] *= -1.0
+    poses[:, 3, 3] = 1.0
+    return poses
+
+
+def generate_random_gaussians(candidate_pos: np.ndarray, cell_size: float,
+                              cam_height: float, rng: np.random.Generator,
+                              per_cell: int = 200) -> dict | None:
+    """Random Gaussians above frontier cells: uncertainty mass that makes
+    unexplored regions attractive to the EIG (the reference's
+    generate_random_gaussians)."""
+    if candidate_pos is None or len(candidate_pos) == 0:
+        return None
+    n_cells = candidate_pos.shape[0]
+    xz_off = rng.uniform(0, cell_size, (1, per_cell, 2))
+    y_off = (cam_height - 1.0) + rng.uniform(0, 1.0, (n_cells, per_cell, 1))
+    xz = candidate_pos[:, None, :] + xz_off
+    pts = np.concatenate([xz, y_off], axis=-1).reshape(-1, 3)
+    pts = pts[:, [0, 2, 1]]                       # to x-y-z order
+    m = pts.shape[0]
+    rots = np.zeros((m, 4), np.float32)
+    rots[:, 0] = 1.0
+    return dict(
+        means3D=pts.astype(np.float32),
+        scales=(rng.uniform(0, 1, (m, 3)).clip(min=1e-3)
+                * cell_size * 0.05).astype(np.float32),
+        rotations=rots,
+        opacity=rng.uniform(0, 1, (m, 1)).clip(min=1e-3).astype(np.float32),
+        shs=rng.uniform(0, 1, (m, 1, 3)).astype(np.float32),
+    )

@@ -1,0 +1,481 @@
+"""AstarPlanner: occupancy mapping, frontier exploration, path planning.
+
+Counterpart of the JAX package's planning/planner.py (the reference
+AstarPlanner's API): init / update_occ_map / build_frontiers /
+setup_start / planning / global_planning / add_obstacle /
+convert_to_map / convert_to_world / pose_eval (a uniform stub).  The
+(3, Gz, Gx) occupancy map stays on the planner's device and takes one
+vote update per frame (planning/occupancy.py); a planning event pulls its
+uint8 label map once and runs the morphology, connected components and
+distance transform on the host (utils/raster.py, cv2's cells without
+cv2), then one device sweep field serves every goal (planning/sweep.py).
+
+Not ported yet (ROADMAP.md): the host A* backend
+(`explore.planner_backend: astar`), known-environment mode
+(init_known_env, cover_fov_2d), object planning, render_bev, save/load
+and the planning PNGs.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.camera import Camera
+from ..utils import raster
+from .candidates import (generate_candidates, generate_random_gaussians,
+                         sample_random_candidates)
+from .occupancy import occ_update
+from .sweep import SweepSearch
+
+_NOT_PORTED = ("{} is not ported to the PyTorch package yet (ROADMAP.md, "
+               "queue 1)")
+
+
+class LocalizationError(RuntimeError):
+    """The start cell is enclosed by obstacles."""
+
+
+class NoFrontierError(RuntimeError):
+    """Exploration is exhausted."""
+
+
+def _host(x) -> np.ndarray:
+    """A tensor on any device, or an array, as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def camera_from_intrinsics(K, width: int, height: int) -> Camera:
+    K = np.asarray(K)
+    return Camera(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                  cy=float(K[1, 2]), width=int(width), height=int(height))
+
+
+class AstarPlanner:
+    def __init__(self, slam_config, seed: int = 0, device="cuda"):
+        self.cfg = slam_config
+        ex = slam_config["explore"]
+        pol = slam_config["policy"]
+        self.device = torch.device(device)
+        self.cell_size = float(ex["cell_size"])
+        self.height_upper = float(pol["height_upper"])
+        self.height_lower = float(pol["height_lower"])
+        self.add_random_gaussians = bool(ex["add_random_gaussians"])
+        self.K = int(ex["sample_view_num"])
+        self.radius = float(ex["sample_range"])
+        self.min_range = float(ex["min_range"])
+        self.centering = bool(ex["centering"])
+        self.frontier_select_method = str(ex["frontier_select_method"])
+        self.shortcut_path = bool(ex["shortcut_path"])
+        self.planner_backend = str(ex.get("planner_backend", "sweep"))
+        if self.planner_backend != "sweep":
+            raise NotImplementedError(_NOT_PORTED.format(
+                f"explore.planner_backend {self.planner_backend!r} (the host "
+                f"A* search)"))
+        # C-space clearance: inflate observed obstacles by the agent radius
+        # (clearance_m < 0 = auto from the simulator's agent radius through
+        # set_clearance; 0 = off)
+        self.clearance_m = float(ex.get("clearance_m", -1.0))
+        self.clearance_cells = (int(round(self.clearance_m / self.cell_size))
+                                if self.clearance_m > 0 else 0)
+        self.pcd_far_distance = float(pol["pcd_far_distance"])
+        self.rng = np.random.default_rng(seed)
+
+        self.occ_map = None          # (3, Gz, Gx) f32 tensor on the device
+        self.occ_map_np = None       # dilated binary obstacle map (host)
+        self.free_space_np = None
+        self.frontier = None
+        self.target_frontier = None
+        self.cam_pos = None          # [z, x] grid cell
+        self.map_center = None       # np (2,) world xz
+        self.grid_dim = None         # np (2,) [gx, gz]
+        self.cam_height = None
+        self.frame_idx = 0
+        self._search = None
+        self._search_key = None
+        self._occ_idx_cache = None
+        self.camera: Camera | None = None
+
+    # -- lifecycle ----------------------------------------------------------
+    def init(self, pose, intrinsic, scene_bounds=None,
+             img_size: tuple[int, int] = (256, 256)):
+        """768² grid centered at the start pose, or sized by the scene
+        bounds when they are known."""
+        pose = np.asarray(pose, np.float64)
+        self.cam_height = float(pose[1, 3])
+        self.camera = camera_from_intrinsics(np.asarray(intrinsic),
+                                             img_size[1], img_size[0])
+        self.grid_dim = np.array([768, 768])
+        if scene_bounds is not None:
+            lo, hi = np.asarray(scene_bounds[0]), np.asarray(scene_bounds[1])
+            map_center = (hi[[0, 2]] + lo[[0, 2]]) / 2
+            self.grid_dim = np.array([
+                int((hi[0] - lo[0]) / self.cell_size + 1),
+                int((hi[2] - lo[2]) / self.cell_size + 1)])
+        else:
+            map_center = pose[[0, 2], 3]
+        self.map_center = np.asarray(map_center, np.float32)
+        self._map_center_dev = torch.as_tensor(self.map_center,
+                                               device=self.device)
+
+        occ = np.zeros((3, self.grid_dim[1], self.grid_dim[0]), np.float32)
+        occ[0] = 1.0
+        cx = int((pose[0, 3] - map_center[0]) / self.cell_size
+                 + self.grid_dim[0] // 2)
+        cz = int((pose[2, 3] - map_center[1]) / self.cell_size
+                 + self.grid_dim[1] // 2)
+        occ[2, cz - 1:cz + 2, cx - 1:cx + 2] = 2.0
+        self.cam_pos = np.array([cz, cx])
+        self.occ_map = torch.as_tensor(occ, device=self.device)
+        self._occ_idx_cache = None
+        self._search_key = None
+        self.frame_idx = 0
+
+    def update_occ_map(self, depth, c2w, t: int):
+        self.frame_idx = int(t)
+        depth = torch.as_tensor(depth, device=self.device).float()
+        if depth.dim() == 3:
+            depth = depth.reshape(depth.shape[-2], depth.shape[-1])
+        c2w = np.asarray(c2w, np.float32)
+        # the camera cell on the host: the device update needs no pull
+        cx = int(np.floor((c2w[0, 3] - self.map_center[0]) / self.cell_size)
+                 + (self.grid_dim[0] - 1) // 2)
+        cz = int(np.floor((c2w[2, 3] - self.map_center[1]) / self.cell_size)
+                 + (self.grid_dim[1] - 1) // 2)
+        self.cam_pos = np.array([cz, cx])
+        self.occ_map, _ = occ_update(
+            self.occ_map, depth, torch.as_tensor(c2w, device=self.device),
+            self.camera, self.cell_size, self._map_center_dev,
+            self.height_lower, self.height_upper, self.pcd_far_distance)
+
+    # -- conversions --------------------------------------------------------
+    def convert_to_map(self, coord):
+        cx = int((coord[0] - self.map_center[0]) / self.cell_size
+                 + self.grid_dim[0] // 2)
+        cz = int((coord[1] - self.map_center[1]) / self.cell_size
+                 + self.grid_dim[1] // 2)
+        return np.array([cx, cz])
+
+    def convert_to_world(self, coord):
+        return (np.asarray(coord) - self.grid_dim / 2) * self.cell_size + \
+            self.map_center
+
+    # -- free space / frontiers --------------------------------------------
+    def _occ_index_np(self):
+        """Host copy of the occupancy LABEL map (argmax over the channels,
+        the first maximum on ties, as uint8), pulled once per frame: a
+        planning event reads it several times."""
+        cached = self._occ_idx_cache
+        if cached is not None and cached[0] == self.frame_idx:
+            return cached[1]
+        idx = torch.argmax(self.occ_map, dim=0).to(torch.uint8).cpu().numpy()
+        self._occ_idx_cache = (self.frame_idx, idx)
+        return idx
+
+    def build_connected_freespace(self, gaussian_points=None) -> np.ndarray:
+        """The free region connected to the robot (the largest component
+        after a 3x3 opening); columns of Gaussians block cells."""
+        index = self._occ_index_np()
+        free = (index == 2)
+
+        if free.sum() > 18 and gaussian_points is not None:
+            pts = np.asarray(gaussian_points)
+            sel = (pts[:, 1] >= self.height_lower) & \
+                (pts[:, 1] <= self.height_upper)
+            pts = pts[sel]
+            if len(pts):
+                gx, gz = self._discretize(pts[:, 0], pts[:, 2])
+                flat = gz.astype(np.int64) * self.grid_dim[0] + gx
+                uniq, counts = np.unique(flat, return_counts=True)
+                uniq = uniq[counts > 25]
+                free[uniq // self.grid_dim[0], uniq % self.grid_dim[0]] = False
+
+        free = raster.open3(free)
+        n, labels, areas = raster.label8(free)
+        if n <= 1:
+            return free
+        order = np.argsort(areas)
+        robot_label = order[-1] if order[-1] != 0 else order[-2]
+        return (labels == robot_label).astype(np.uint8)
+
+    def _discretize(self, x, z):
+        gx = np.floor((x - self.map_center[0]) / self.cell_size) + \
+            (self.grid_dim[0] - 1) // 2
+        gz = np.floor((z - self.map_center[1]) / self.cell_size) + \
+            (self.grid_dim[1] - 1) // 2
+        gx = np.clip(gx, 0, self.grid_dim[0] - 1).astype(np.int64)
+        gz = np.clip(gz, 0, self.grid_dim[1] - 1).astype(np.int64)
+        return gx, gz
+
+    def build_frontiers(self, gaussian_points=None):
+        """Frontier cells (free boundary and unknown) in world coords.
+        Returns (frontier_points, free_space); frontier_points is None
+        when exploration is exhausted."""
+        free_space = self.build_connected_freespace(gaussian_points)
+        unknown = (self._occ_index_np() == 0)
+        boundary = raster.dilate3(free_space) - free_space
+        frontier = np.bitwise_and(boundary.astype(bool), unknown)
+        self.frontier = frontier.astype(np.uint8)
+        if frontier.sum() == 0:
+            self.target_frontier = None
+            return None, free_space
+
+        frontier = raster.dilate3(frontier)
+        _n, labels, _areas = raster.label8(frontier)
+        uniq, counts = np.unique(labels, return_counts=True)
+        uniq, counts = uniq[1:], counts[1:]
+        keep = counts > 10
+        uniq, counts = uniq[keep], counts[keep]
+        if len(uniq) == 0:
+            return None, free_space
+
+        target_label = -1
+        if self.frontier_select_method == "largest":
+            target_label = uniq[np.argmax(counts)]
+        else:
+            # every label's mean distance to the agent in one bincount pass
+            ys, xs = np.nonzero(labels)
+            labs = labels[ys, xs]
+            d = np.hypot(ys - self.cam_pos[0], xs - self.cam_pos[1])
+            n_all = int(labels.max()) + 1
+            cnt_all = np.bincount(labs, minlength=n_all)
+            mean_d = np.bincount(labs, weights=d, minlength=n_all) \
+                / np.maximum(cnt_all, 1)
+            eligible = np.zeros(n_all, bool)
+            eligible[uniq] = True
+            eligible &= cnt_all >= 4
+            if eligible.any():
+                if self.frontier_select_method == "combined":
+                    score = np.where(eligible,
+                                     cnt_all / (mean_d + 20.0), -np.inf)
+                    if score.max() > 0.0:
+                        target_label = int(np.argmax(score))
+                else:                     # "closest"
+                    dist_m = np.where(eligible, mean_d, np.inf)
+                    if dist_m.min() < 1e4:
+                        target_label = int(np.argmin(dist_m))
+        if target_label == -1:
+            return None, free_space
+
+        self.target_frontier = (labels == target_label).astype(np.uint8)
+        pix = np.stack(np.where(self.target_frontier), axis=1)[:, [1, 0]]
+        world = (pix - np.array([[self.grid_dim[0] // 2,
+                                  self.grid_dim[1] // 2]])) * self.cell_size \
+            + self.map_center[None, :]
+
+        if gaussian_points is None:
+            # frontier-based exploration: the closest frontier cell at least
+            # 0.5 m away, else a step backward
+            agent = self.cam_pos[[1, 0]]          # to x, z cell coords
+            agent_w = self.convert_to_world(agent)
+            dist = np.linalg.norm(world - agent_w[None, :], axis=1)
+            valid = np.where(dist >= 0.5)[0]
+            if len(valid) > 0:
+                best_i = valid[np.argmin(dist[valid])]
+                return world[best_i:best_i + 1], free_space
+            ang = np.pi * 5 / 4
+            return (agent_w[None, :]
+                    + np.array([[-np.cos(ang), -np.sin(ang)]]) * 0.5,
+                    free_space)
+        return world, free_space
+
+    # -- start / paths ------------------------------------------------------
+    def setup_start(self, start, gaussian_points=None, frame_idx: int = 0):
+        """Binarize the map with Gaussian columns as obstacles, dilate,
+        inflate by the clearance, check that the start cell is free, and
+        launch the sweep field from it.  Idempotent per (frame, start): the
+        driver calls it early in a planning event and action planning's
+        own call is then a no-op."""
+        key = (self.frame_idx, int(start[0]), int(start[1]))
+        if self._search is not None and self._search_key == key:
+            return
+        # invalidate BEFORE building: if the build raises (enclosed start)
+        # a retry must not reuse a stale search
+        self._search_key = None
+        self._search = None
+        occupied = (self._occ_index_np() == 1)
+        self.start = np.asarray(start, np.int64)
+
+        if gaussian_points is not None:
+            pts = np.asarray(gaussian_points)
+            lower_y, upper_y = self.cam_height - 1.0, self.cam_height
+            sel = (pts[:, 1] >= lower_y) & (pts[:, 1] <= upper_y)
+            pts = pts[sel]
+            if len(pts):
+                gx, gz = self._discretize(pts[:, 0], pts[:, 2])
+                flat = gz * self.grid_dim[0] + gx
+                uniq, counts = np.unique(flat, return_counts=True)
+                uniq = uniq[counts > 50]
+                occupied[uniq // self.grid_dim[0],
+                         uniq % self.grid_dim[0]] = True
+
+        binarymap = raster.dilate3(occupied)
+        y, x = self.start
+        patch = binarymap[max(y - 1, 0):y + 2, max(x - 1, 0):x + 2].copy()
+        if patch.size == 9:
+            patch[1, 1] = 0
+            if patch.sum() >= 8:
+                raise LocalizationError("start cell is enclosed")
+        free = self.build_connected_freespace(gaussian_points)
+        clr = self.clearance_cells
+        if clr > 0:
+            # configuration-space obstacles: observed-occupied inflated by
+            # the agent radius, so that every plannable cell admits the
+            # agent's footprint
+            k = raster.ellipse_kernel(2 * clr + 1)
+            binarymap = np.maximum(binarymap, raster.dilate(occupied, k))
+            # the agent occupies the start disk: traversable regardless of
+            # vote noise around it
+            start_disk = raster.fill_circle(binarymap.shape, (x, y), clr)
+            binarymap[start_disk > 0] = 0
+            nav = (((free > 0) | (start_disk > 0))
+                   & (binarymap == 0)).astype(np.uint8)
+            # the component connected to the start
+            _n, labels, _areas = raster.label8(nav)
+            lab = labels[y, x]
+            if lab > 0:
+                nav = (labels == lab).astype(np.uint8)
+            free = nav
+        binarymap[y, x] = 0
+        self.occ_map_np = binarymap
+        self.free_space_np = free
+        self._search = SweepSearch(self.occ_map_np, self.free_space_np,
+                                   self.start, device=self.device)
+        self._search_key = key
+
+    def add_obstacle(self, world_xy):
+        """Mark one cell as hard-occupied (after a blocked forward action,
+        the cell ahead of the agent, so that the next plan routes around
+        it)."""
+        gx, gz = self._discretize(np.asarray([world_xy[0]]),
+                                  np.asarray([world_xy[1]]))
+        gx, gz = int(gx[0]), int(gz[0])
+        cell = self.occ_map[:, gz, gx]
+        self.occ_map[:, gz, gx] = torch.stack(
+            [torch.zeros_like(cell[0]), cell.max() + 100.0,
+             torch.zeros_like(cell[0])])
+        self._occ_idx_cache = None
+        self._search_key = None
+
+    def set_clearance(self, radius_m: float):
+        """Resolve clearance_m = -1 (auto) from the embodied agent's
+        radius, which the simulator reports."""
+        if self.clearance_m < 0 and radius_m > 0:
+            self.clearance_cells = int(round(float(radius_m)
+                                             / self.cell_size))
+            self._search_key = None
+
+    def _snap_goal(self, goal):
+        """The navigable cell nearest to `goal` [y, x]: with C-space
+        inflation, frontier goals sit in the inflated band and are reached
+        from a safe standoff."""
+        gy, gx = int(goal[0]), int(goal[1])
+        nav = self.free_space_np
+        h, w = nav.shape
+        if 0 <= gy < h and 0 <= gx < w and nav[gy, gx]:
+            return goal
+        r = self.clearance_cells + 6
+        y0, y1 = max(gy - r, 0), min(gy + r + 1, h)
+        x0, x1 = max(gx - r, 0), min(gx + r + 1, w)
+        win = nav[y0:y1, x0:x1]
+        ys, xs = np.nonzero(win)
+        if len(ys) == 0:
+            return None
+        d2 = (ys + y0 - gy) ** 2 + (xs + x0 - gx) ** 2
+        i = int(np.argmin(d2))
+        return np.array([ys[i] + y0, xs[i] + x0], np.int64)
+
+    def planning(self, goal) -> np.ndarray:
+        if self._search is None:
+            raise RuntimeError("call setup_start first")
+        if self.clearance_cells > 0:
+            goal = self._snap_goal(goal)
+            if goal is None:
+                return np.array([])
+        return self._search.plan(goal, shortcut=self.shortcut_path)
+
+    # -- global planning ----------------------------------------------------
+    def pose_eval(self, poses, *args):
+        """Uniform-score stub so that planning runs without a SLAM
+        backend."""
+        return torch.ones(poses.shape[0]), poses
+
+    def global_planning(self, pose_evaluation_fn=None, gaussian_points=None,
+                        goal_proposal_fn=None, expansion=1, agent_pose=None,
+                        defer_scores=False):
+        """Frontier-driven candidate poses, scored by EIG, best 20 first.
+
+        Returns (poses (<=20, 4, 4), scores, random_gaussian_params) as
+        numpy arrays.  With `defer_scores=True`, `pose_evaluation_fn` is
+        the asynchronous variant (it returns a resolve closure) and this
+        returns one `finish()` closure giving that triple, so the device
+        scores the candidates while the caller goes on."""
+        candidate_pos, free_space = self.build_frontiers(gaussian_points)
+        use_frontier = candidate_pos is not None
+        if pose_evaluation_fn is None and not use_frontier:
+            return None, None, None
+
+        random_gaussian_params = None
+        if self.add_random_gaussians:
+            random_gaussian_params = generate_random_gaussians(
+                candidate_pos, self.cell_size, self.cam_height, self.rng)
+
+        if candidate_pos is None and goal_proposal_fn is not None:
+            candidate_pos = goal_proposal_fn(self.K, self.cam_height)
+
+        candidate_pose = np.zeros((0, 4, 4), np.float32)
+        if candidate_pos is not None:
+            candidate_pos = np.asarray(candidate_pos)
+            if self.centering:
+                candidate_pos = candidate_pos.mean(axis=0, keepdims=True)
+            exp = float(expansion)
+            while len(candidate_pose) == 0:
+                candidate_pose = generate_candidates(
+                    candidate_pos, self.K, self.radius, self.min_range,
+                    self.cam_height, self.rng, expansion=exp)
+                exp *= 1.5
+                eroded = raster.erode_square(free_space, 10)
+                if eroded.sum() > 40:
+                    xy = candidate_pose[:, [0, 2], 3]
+                    gx = ((xy[:, 0] - self.map_center[0]) / self.cell_size
+                          + self.grid_dim[0] // 2).astype(np.int64)
+                    gz = ((xy[:, 1] - self.map_center[1]) / self.cell_size
+                          + self.grid_dim[1] // 2).astype(np.int64)
+                    gx = np.clip(gx, 0, self.grid_dim[0] - 1)
+                    gz = np.clip(gz, 0, self.grid_dim[1] - 1)
+                    candidate_pose = candidate_pose[eroded[gz, gx] > 0]
+                if exp > 100:
+                    break
+
+        if not use_frontier and agent_pose is not None:
+            random_pose = sample_random_candidates(
+                agent_pose, free_space, self.grid_dim, self.cell_size,
+                self.map_center, self.rng)
+            candidate_pose = (random_pose if len(candidate_pose) == 0 else
+                              np.concatenate([candidate_pose, random_pose]))
+
+        if len(candidate_pose) == 0:
+            if defer_scores:
+                return None
+            return None, None, random_gaussian_params
+
+        if pose_evaluation_fn is None:
+            resolve = lambda: self.pose_eval(candidate_pose)  # noqa: E731
+        else:
+            resolve = pose_evaluation_fn(candidate_pose,
+                                         random_gaussian_params)
+            if not callable(resolve):     # a synchronous evaluator's scores
+                _r = resolve
+                resolve = lambda: _r      # noqa: E731
+
+        def finish():
+            scores, poses = resolve()
+            scores, poses = _host(scores), _host(poses)
+            order = np.argsort(-scores, kind="stable")[:20]
+            poses, scores = poses[order], scores[order]
+            return poses, scores, random_gaussian_params
+
+        if defer_scores:
+            return finish
+        return finish()

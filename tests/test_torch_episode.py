@@ -1,0 +1,178 @@
+"""The FisherRF episode loop, JAX package against the PyTorch port on the
+CPU: both ActiveMappers on the settings of tests/test_engine.py
+(episode_cfg: 48x48 frames, a 10 cm map, queue 8, 24 steps, FakeSim
+seed 3, mapper seed 0), and the port's entry point.
+
+The two runs must take the same actions.  At every planning event the
+path-EIG scores must agree to rtol 1e-2 (test_torch_path_eval.py's
+tolerance) with the same -inf padding; the runs may part only at an
+event whose two best JAX scores lie within that tolerance of each other
+and whose choices differ, and then the actions are compared up to that
+event.  At least one planning event must run path EIG and choose the
+same path in both.
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from fisher_nerf_customized_tpu.engine import driver as jdriver
+from fisher_nerf_customized_tpu.envs.fake_sim import BoxScene as JScene
+from fisher_nerf_customized_tpu.envs.fake_sim import FakeSim as JSim
+from fisher_nerf_customized_tpu.ops.camera import Camera as JCamera
+from fisher_nerf_customized_tpu_torch import cli
+from fisher_nerf_customized_tpu_torch.config import get_cfg_defaults as tcfg
+from fisher_nerf_customized_tpu_torch.engine import driver as tdriver
+from fisher_nerf_customized_tpu_torch.envs.fake_sim import BoxScene as TScene
+from fisher_nerf_customized_tpu_torch.envs.fake_sim import FakeSim as TSim
+from fisher_nerf_customized_tpu_torch.ops.camera import Camera as TCamera
+
+from test_engine import IMG, episode_cfg
+
+RTOL = 1e-2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread while this module runs: under the suite's six
+    workers, torch's default of one thread per core oversubscribes the
+    CPU beside XLA's own pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def port_cfg(jax_cfg):
+    cfg = tcfg()
+    cfg.merge_from_other(jax_cfg.to_dict())
+    return cfg
+
+
+def run_episode(pkg, tmp_path, monkeypatch, steps=24):
+    """One episode; returns (actions taken, path-score arrays, result)."""
+    cfg = episode_cfg(tmp_path / pkg, steps=steps)
+    if pkg == "jax":
+        cam_t, scene_t, sim_t, drv, kw = JCamera, JScene, JSim, jdriver, {}
+    else:
+        cfg = port_cfg(cfg)
+        cam_t, scene_t, sim_t, drv, kw = (TCamera, TScene, TSim, tdriver,
+                                          dict(device="cpu"))
+    cam = cam_t(fx=float(IMG), fy=float(IMG), cx=IMG / 2, cy=IMG / 2,
+                width=IMG, height=IMG)
+    scene = scene_t(room_lo=(-3, 0, -3), room_hi=(3, 2.5, 3),
+                    obstacles=[((1.0, 0.0, 1.0), (1.8, 1.8, 1.8))])
+    sim = sim_t(scene, cam, forward_step=0.15, turn_angle=30.0, seed=3, **kw)
+    actions, scores = [], []
+    sim_step = sim.step
+
+    def step(a):
+        actions.append(int(a))
+        return sim_step(a)
+
+    sim.step = step
+    score_fn = drv.path_eig_scores
+
+    def recording(*args, **kwargs):
+        s = score_fn(*args, **kwargs)
+        scores.append(np.asarray(s) if pkg == "jax" else s.numpy())
+        return s
+
+    monkeypatch.setattr(drv, "path_eig_scores", recording)
+    mapper = drv.ActiveMapper(cfg, sim, scene=scene, seed=0, **kw)
+    result = mapper.test_navigation(
+        **({"n_eval_poses": 0} if pkg == "jax" else {}))
+    return actions, scores, result, mapper
+
+
+@pytest.fixture(scope="module")
+def episodes(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("episode")
+    with pytest.MonkeyPatch.context() as mp:
+        ref = run_episode("jax", tmp, mp)
+    with pytest.MonkeyPatch.context() as mp:
+        got = run_episode("torch", tmp, mp)
+    return ref, got
+
+
+def test_episodes_take_the_same_actions(episodes):
+    (ja, jscores, jres, _jm), (ta, tscores, tres, tm) = episodes
+    assert len(tscores) == len(jscores) >= 1
+    n_compared = len(ja)
+    same_choices = 0
+    for i, (ref, got) in enumerate(zip(jscores, tscores)):
+        np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+        live = np.isfinite(ref)
+        np.testing.assert_allclose(got[live], ref[live], rtol=RTOL)
+        if int(np.argmax(got)) == int(np.argmax(ref)):
+            same_choices += 1
+            continue
+        top2 = np.sort(ref[live])[-2:]
+        assert abs(top2[1] - top2[0]) <= RTOL * abs(top2[1]), (
+            f"planning event {i}: the choices differ and the best two "
+            f"scores {top2} are not within rtol {RTOL}")
+        n_compared = tm.plan_log[i]["t"]
+        break
+    assert same_choices >= 1
+    assert ta[:n_compared] == ja[:n_compared]
+    assert tres["steps"] == jres["steps"] == 24
+    if n_compared == len(ja):
+        assert ta == ja
+        assert tres["coverage_2d_pct"] == pytest.approx(
+            jres["coverage_2d_pct"], abs=1e-9)
+        assert tres["n_gaussians"] == jres["n_gaussians"]
+
+
+def test_episode_result_and_timer(episodes):
+    _ref, (_a, scores, res, mapper) = episodes
+    assert res["done_reason"] == "max_steps"
+    assert res["planning_events"] == len(mapper.plan_log) == len(scores)
+    assert 0.0 < res["coverage_2d_pct"] <= 100.0
+    for phase in ("tracking_mapping", "occupancy", "plan.global",
+                  "plan.sweep", "plan.global.wait", "plan.actions",
+                  "plan.h_train", "plan.path_eig"):
+        assert res["timing"][phase]["count"] >= 1, phase
+
+
+def test_entry_point_runs_an_episode(tmp_path, capsys):
+    """python -m fisher_nerf_customized_tpu_torch, on the CPU at a small
+    size: one JSON line per scene."""
+    argv = ["--scenes_list", "fake_room_0", "--max_steps", "8",
+            "--policy", "gaussians_based",
+            "--img_size", "48", "--device", "cpu",
+            "--log_dir", str(tmp_path), "--name", "cli",
+            "--set", "mapping.num_iters", "4", "tpu.capacity", "8192",
+            "policy.planning_queue_size", "5", "turn_angle", "30.0",
+            "--set", "explore.sample_view_num", "16", "explore.cell_size",
+            "0.1", "tpu.pose_chunk", "4"]
+    results = cli.main(argv)
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    out = json.loads(line)["fake_room_0"]
+    assert out == json.loads(json.dumps(results["fake_room_0"],
+                                        default=float))
+    assert out["steps"] == 8 and out["planning_events"] >= 1
+    assert os.path.exists(tmp_path / "cli" / "fake_room_0" / "result.json")
+
+
+@pytest.mark.parametrize("flag", [["--sim", "habitat"], ["--object_scene"],
+                                  ["--known_env"], ["--resume"],
+                                  ["--eval_poses", "8"]])
+def test_entry_point_refuses_unported_flags(flag, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["--device", "cpu", "--log_dir", str(tmp_path)] + flag)
+
+
+@pytest.mark.parametrize("key,value", [("tpu.pipeline_planning", True),
+                                       ("explore.prune_invisible", True),
+                                       ("eval_every", 10),
+                                       ("policy.name", "upen_rrt")])
+def test_driver_refuses_unported_settings(key, value, tmp_path):
+    cfg = port_cfg(episode_cfg(tmp_path))
+    cfg.merge_from_list([key, value])
+    cam = TCamera(fx=float(IMG), fy=float(IMG), cx=IMG / 2, cy=IMG / 2,
+                  width=IMG, height=IMG)
+    sim = TSim(TScene(), cam, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdriver.ActiveMapper(cfg, sim, device="cpu")

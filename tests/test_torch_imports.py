@@ -1,6 +1,7 @@
 """The PyTorch port and chip_smoke.py must not import JAX or anything of
-the JAX package (not even its JAX-free modules): the port runs on a
-machine without JAX."""
+the JAX package (not even its JAX-free modules), nor OpenCV (cv2): the
+port runs on a machine without JAX and without cv2 (utils/raster.py has
+the port's own form of each cv2 call)."""
 import re
 from pathlib import Path
 
@@ -10,8 +11,15 @@ ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "fisher_nerf_customized_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|fisher_nerf_customized_tpu\b"
-    r"(?!_torch))", re.MULTILINE)
+    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|cv2\b"
+    r"|fisher_nerf_customized_tpu\b(?!_torch))", re.MULTILINE)
+# the episode slice's modules: they must exist (test_no_jax_imports checks
+# them with every other file of the port)
+EPISODE_MODULES = [
+    "utils/raster.py", "utils/logging_utils.py", "planning/occupancy.py",
+    "planning/astar.py", "planning/sweep.py", "planning/candidates.py",
+    "planning/planner.py", "engine/actions.py", "engine/path_eval.py",
+    "engine/visualization.py", "engine/driver.py", "cli.py", "__main__.py"]
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -20,14 +28,22 @@ def test_no_jax_imports(path):
     hits = [m.group(0).strip() for m in FORBIDDEN.finditer(text)]
     assert not hits, f"{path.name} imports {hits}"
     assert "importlib" not in text or "jax" not in text
+    assert "importlib" not in text or "cv2" not in text
+
+
+def test_episode_modules_are_checked():
+    port = ROOT / "fisher_nerf_customized_tpu_torch"
+    assert all(port / m in FILES for m in EPISODE_MODULES)
 
 
 def test_forbidden_pattern_catches_jax_imports():
     bad = ["import jax", "import jax.numpy as jnp", "from jax import lax",
            "from fisher_nerf_customized_tpu.ops import fisher",
            "import fisher_nerf_customized_tpu",
-           "    from fisher_nerf_customized_tpu.config import node"]
+           "    from fisher_nerf_customized_tpu.config import node",
+           "import cv2", "    import cv2  # noqa", "from cv2 import line"]
     good = ["import torch", "from fisher_nerf_customized_tpu_torch.ops "
-            "import fisher", "from .ops import binning"]
+            "import fisher", "from .ops import binning",
+            "from ..utils.raster import fill_poly", "import cv2x"]
     assert all(FORBIDDEN.search(s) for s in bad)
     assert not any(FORBIDDEN.search(s) for s in good)
