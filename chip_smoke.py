@@ -20,9 +20,34 @@ Phases, one line each:
                    K3 20-wide).  The launch counts are zeroed just before
                    and read just after: every kernel, K3's 20-wide variant
                    counted apart, must be launched, and at least 2
-                   planning events must run.  Prints the wall time, steps
-                   per second, the per-phase timer, coverage_2d_pct and
+                   planning events must run.  After the loop the entry
+                   point evaluates the map over 2000 held-out poses (K1 at
+                   each), and the reconstruction metric runs at steps 0,
+                   25, 50, 75 and the end against the scene's 1.2 M-point
+                   ground-truth cloud.  Prints the wall time, steps per
+                   second, the per-phase timer, coverage_2d_pct and
                    done_reason;
+  eval             the episode's evaluation: PSNR, SSIM, lpips_proxy,
+                   depth MAE (all poses and seen poses), the recon metrics
+                   and AUC, the eval's wall time and K1 launches (>= 2000),
+                   every metric finite, every pose's SSIM in [-1, 1.001],
+                   the completeness ratio never falling between recon
+                   points, the final recon equal to the one-shot metric on
+                   the final cloud (rtol 1e-9);
+  eval_check       the eval's first chunk of 32 poses again: its metrics
+                   with K1 against those with K1's plain twin on the card
+                   (rtol 1e-4), the batched ground-truth raycast against
+                   per-pose raycasts (to the bit), lpips_proxy on the card
+                   against the CPU (rtol 1e-5: its convolutions in f32);
+  resume           a fresh ActiveMapper resumes the episode's checkpoint:
+                   n_active, the keyframes, the occupancy map, the cloud's
+                   size, the queue and the four generator states equal the
+                   episode's; then 10 more steps with one mapping event,
+                   its losses finite;
+  tie_cut          on the episode's final map, at each keyframe pose, the
+                   tile rows of the render's binning whose K cut falls
+                   inside a depth tie, at the coarse and the fine level
+                   (reported only);
   slice            the map-query path at the same width: 60 scripted steps
                    through GaussianSLAM.track_rgbd (6 mapping events of
                    densify + 60 Adam steps of 2 frames), then renders at 8
@@ -66,7 +91,15 @@ Phases, one line each:
                    (same argmax and ranking, for the scores and for their
                    point-EIG sums), and its sweep field against the CPU's
                    (parent exact, cost to 1e-3); times the sweep field and
-                   one occupancy update on the card;
+                   one occupancy update on the card, and compares that
+                   update with the CPU's on the same map and frame, cell
+                   for cell (the count of differing cells is reported);
+  device_split     the CPU test episode's settings (tests/test_engine.py
+                   episode_cfg: 48x48, a 10 cm map, 24 steps, FakeSim seed
+                   3, mapper seed 0) on the card and on the CPU: the first
+                   step at which their actions part; a split before the
+                   first planning event fails, a later one is reported with
+                   the two best path scores of the event before it;
   profile          device time by kernel over one more mapping event of
                    the slice's map and over one planning query;
   kernels          one line per kernel with its launches (the episode's)
@@ -122,6 +155,8 @@ N_PROBE_FRAMES = 60
 SCENE = "fake_apartment_0"
 SCENE_SEED = zlib.crc32(SCENE.encode()) % (2 ** 31)
 EPISODE_STEPS = 100
+N_EVAL_POSES = 2000     # the entry point's default
+RESUME_STEPS = 10       # after the resume: one mapping event
 MIN_PLANNING_EVENTS = 2
 
 
@@ -329,9 +364,11 @@ def step(slam, obs, events):
 
 def run_episode(log_dir):
     """The port's entry point on SCENE for EPISODE_STEPS steps, on the card:
-    (result, mapper, wall seconds, launches by kernel)."""
+    (args, cfg, result, mapper, wall seconds, launches by kernel, the
+    evaluation's record: its wall seconds, K1 launches and rows)."""
     import torch
     from fisher_nerf_customized_tpu_torch import cli
+    from fisher_nerf_customized_tpu_torch.engine import driver
     from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
                                                       cuda_blend_bwd,
                                                       cuda_fisher)
@@ -341,20 +378,300 @@ def run_episode(log_dir):
         "--scenes_list", SCENE, "--max_steps", str(EPISODE_STEPS),
         "--log_dir", log_dir, "--name", "episode"])
     cfg = cli.load_config(args)
+    eval_fn = driver.eval_navigation
+    ev = {}
+
+    def recording(*a, **kw):
+        torch.cuda.synchronize()
+        k1, t0 = cuda_blend.launches, time.perf_counter()
+        out = eval_fn(*a, **kw)
+        torch.cuda.synchronize()
+        ev.update(wall_s=time.perf_counter() - t0,
+                  k1_launches=cuda_blend.launches - k1,
+                  per_pose=out["per_pose"])
+        return out
+
+    driver.eval_navigation = recording
     cuda_blend.launches = 0
     cuda_blend_bwd.launches = 0
     cuda_fisher.launches = 0
     cuda_fisher.launches_full = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    result, mapper = cli.run_scene(args, cfg, SCENE)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, mapper = cli.run_scene(args, cfg, SCENE)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        driver.eval_navigation = eval_fn
     launches = dict(blend=cuda_blend.launches,
                     blend_bwd=cuda_blend_bwd.launches,
                     fisher=cuda_fisher.launches - cuda_fisher.launches_full,
                     fisher_nf20=cuda_fisher.launches_full)
-    return result, mapper, wall_s, launches
+    return args, cfg, result, mapper, wall_s, launches, ev
+
+
+def check_eval(result, mapper, ev):
+    """The episode's evaluation and recon curve: (row, report)."""
+    from fisher_nerf_customized_tpu_torch.cli import _sample_gt
+    from fisher_nerf_customized_tpu_torch.engine.eval import (
+        accuracy_comp_ratio_from_pcl)
+    ev_res, recon = result["eval"], result["recon"]
+    timing = result["timing"]
+    row = dict(**{k: v for k, v in ev_res.items()},
+               **{f"recon_{k}": v for k, v in recon.items()},
+               auc=result["auc"], eval_wall_s=ev["wall_s"],
+               eval_k1_launches=ev["k1_launches"],
+               recon_metric_total_s=timing["recon_metric"]["total_s"],
+               recon_metric_count=timing["recon_metric"]["count"],
+               pcl_total_s=timing["pcl"]["total_s"],
+               n_points=mapper.global_pcl.n_points())
+    if ev["k1_launches"] < N_EVAL_POSES or ev_res["n_poses"] != N_EVAL_POSES:
+        raise AssertionError(f"the eval launched K1 {ev['k1_launches']} "
+                             f"times for {ev_res['n_poses']} poses")
+    names = ["psnr", "ssim", "lpips_proxy", "depth_mae"]
+    if ev_res["n_seen"] > 0:
+        names += ["psnr_seen", "ssim_seen", "depth_mae_seen"]
+    values = [ev_res[k] for k in names] + list(recon.values()) \
+        + [result["auc"]]
+    if not np.isfinite(values).all():
+        raise AssertionError(f"non-finite eval or recon metric: {row}")
+    ssims = np.asarray([r["ssim"] for r in ev["per_pose"]])
+    if not (np.isfinite(ssims).all() and ssims.min() >= -1.0
+            and ssims.max() <= 1.001):
+        raise AssertionError(f"per-pose SSIM out of [-1, 1.001]: "
+                             f"{ssims.min()} .. {ssims.max()}")
+    curve = [s["completeness_ratio"] for s in mapper.metrics.steps
+             if "completeness_ratio" in s]
+    if len(curve) != EPISODE_STEPS // 25 or np.any(np.diff(curve) < 0):
+        raise AssertionError(f"completeness curve {curve}")
+    gt = _sample_gt(mapper.scene)
+    one_shot = accuracy_comp_ratio_from_pcl(
+        mapper.global_pcl.get(), gt, 0.05,
+        surface_dist_fn=mapper.scene.surface_distance)
+    rel = {k: abs(recon[k] - v) / max(abs(v), 1e-300)
+           for k, v in one_shot.items()}
+    if max(rel.values()) > 1e-9:
+        raise AssertionError(f"running recon {recon} off the one-shot "
+                             f"{one_shot}")
+    report = dict(row, completeness_curve=curve,
+                  curve_steps=[s["step"] for s in mapper.metrics.steps],
+                  one_shot_rel_err=rel, n_gt=len(gt),
+                  ssim_min=float(ssims.min()), ssim_max=float(ssims.max()))
+    return row, report
+
+
+def check_eval_chunk(mapper):
+    """The eval's first chunk of 32 poses: metrics with K1 against those
+    with K1's plain twin on the card, the batched raycast against per-pose
+    raycasts, lpips_proxy on the card against the CPU."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.engine import eval as teval
+    from fisher_nerf_customized_tpu_torch.ops import cuda_blend, rasterize
+    slam, sim = mapper.slam, mapper.sim
+    poses = teval.uniform_eval_poses(mapper.scene, 32,
+                                     float(sim.c2w[1, 3]))
+    gt_rgb, gt_depth = sim.render_at_batch(poses)
+    raycast_equal = 0
+    for i, c2w in enumerate(poses):
+        rgb, depth = sim.render_at(c2w)
+        raycast_equal += int(torch.equal(rgb, gt_rgb[i])
+                             and torch.equal(depth, gt_depth[i]))
+    out = slam.render_at_poses(poses)
+    k1 = torch.stack(teval._batch_render_metrics(
+        out["render"], gt_rgb, out["depth"], gt_depth)).cpu().numpy()
+    kernel = rasterize.cuda_blend
+    rasterize.cuda_blend = cuda_blend._blend_walk      # the plain twin
+    try:
+        twin_out = slam.render_at_poses(poses)
+    finally:
+        rasterize.cuda_blend = kernel
+    twin = torch.stack(teval._batch_render_metrics(
+        twin_out["render"], gt_rgb, twin_out["depth"], gt_depth)).cpu().numpy()
+    rel = np.abs(k1 - twin) / np.maximum(np.abs(twin), 1e-12)
+    lp_card = teval.lpips_proxy_batch(out["render"][:4], gt_rgb[:4])
+    lp_cpu = teval.lpips_proxy_batch(out["render"][:4].cpu(),
+                                     gt_rgb[:4].cpu())
+    lp_rel = float(((lp_card.cpu() - lp_cpu).abs() / lp_cpu.abs()).max())
+    row = dict(poses=len(poses), raycast_equal=raycast_equal,
+               k1_vs_twin_rel_max=float(rel.max()),
+               k1_vs_twin_rel_by_metric=[float(r) for r in rel.max(axis=1)],
+               lpips_card_vs_cpu_rel=lp_rel,
+               psnr_mean=float(k1[0].mean()))
+    if raycast_equal != len(poses):
+        raise AssertionError(f"render_at_batch differs from render_at at "
+                             f"{len(poses) - raycast_equal} poses")
+    if not np.isfinite(k1).all() or float(rel.max()) > 1e-4:
+        raise AssertionError(f"eval chunk with K1 off its plain twin: {row}")
+    if lp_rel > 1e-5:
+        raise AssertionError(f"lpips_proxy on the card off the CPU's by "
+                             f"{lp_rel} (TF32?)")
+    return row
+
+
+def check_resume(args, cfg, result, mapper):
+    """A fresh ActiveMapper on a copy of the episode's checkpoint: the
+    restored state against the episode's, then RESUME_STEPS more steps."""
+    import shutil
+    import torch
+    from fisher_nerf_customized_tpu_torch import cli
+    from fisher_nerf_customized_tpu_torch.engine.driver import ActiveMapper
+    steps = result["steps"]
+    eval_dir = mapper.eval_dir + "_resume"
+    shutil.rmtree(eval_dir, ignore_errors=True)
+    shutil.copytree(mapper.eval_dir, eval_dir)
+    cfg = cfg.clone()
+    cfg.num_frames = steps + RESUME_STEPS
+    sim, scene = cli.make_sim(args, cfg, SCENE)
+    fresh = ActiveMapper(cfg, sim, scene=scene, eval_dir=eval_dir,
+                         seed=args.seed, scene_id=SCENE, device=args.device)
+    fresh.resume(os.path.join(eval_dir, f"params{steps}.npz"))
+    a, b = mapper, fresh
+    same = dict(
+        n_active=a.slam.n_active == b.slam.n_active,
+        keyframes=(a.slam.keyframe_time_indices
+                   == b.slam.keyframe_time_indices
+                   and a.slam.keyframes.state_dict()["ids"]
+                   == b.slam.keyframes.state_dict()["ids"]),
+        occupancy=bool(torch.equal(a.planner.occ_map, b.planner.occ_map)),
+        point_cloud=a.global_pcl.n_points() == b.global_pcl.n_points(),
+        queue=list(a.queue) == list(b.queue),
+        sim_pose=bool(np.array_equal(a.sim.c2w, b.sim.c2w)),
+        rng=all(x.rng.bit_generator.state == y.rng.bit_generator.state
+                for x, y in ((a, b), (a.slam, b.slam),
+                             (a.planner, b.planner),
+                             (a.global_pcl, b.global_pcl))))
+    if not all(same.values()):
+        raise AssertionError(f"resumed state differs: {same}")
+    losses = b.slam.last_losses
+    res = b.test_navigation(n_eval_poses=0)
+    torch.cuda.synchronize()
+    if res["steps"] != steps + RESUME_STEPS or b.slam.last_losses is losses:
+        raise AssertionError(f"the resumed run ended at {res['steps']} "
+                             f"without a mapping event")
+    new_losses = b.slam.last_losses.cpu().numpy()
+    if not np.isfinite(new_losses).all():
+        raise AssertionError("non-finite losses after the resume")
+    return dict(resumed_at=steps, steps=res["steps"],
+                n_active=b.slam.n_active, loss_first=float(new_losses[0]),
+                loss_last=float(new_losses[-1]),
+                planning_events=res["planning_events"],
+                **{f"same_{k}": v for k, v in same.items()})
+
+
+def count_cut_ties(mapper):
+    """At each keyframe pose of the map, the rows of the render's binning
+    (coarse and fine; a grid too small for the coarse level has only the
+    fine) whose K cut falls inside a depth tie: the k-th and (k+1)-th
+    scores equal and finite."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.ops import binning
+    nearest = binning._nearest_k
+    calls = []
+
+    def counting(scores, k):
+        if scores.shape[-1] > k:
+            top = torch.topk(scores, k + 1, dim=-1).values
+            tie = (top[..., k - 1] == top[..., k]) & torch.isfinite(
+                top[..., k])
+            calls.append((int(tie.sum()), tie.numel()))
+        else:
+            calls.append((0, scores[..., 0].numel()))
+        return nearest(scores, k)
+
+    slam = mapper.slam
+    rows = dict(coarse_tied=0, coarse_rows=0, fine_tied=0, fine_rows=0,
+                poses=0, poses_with_tie=0)
+    binning._nearest_k = counting
+    try:
+        for w2c in slam.keyframes.stacked_w2cs():
+            calls.clear()
+            slam.render_at_pose(np.linalg.inv(w2c))
+            if len(calls) not in (1, 2):
+                raise AssertionError(f"{len(calls)} top-k levels per render")
+            (ct, cr), (ft, fr) = ([(0, 0)] + calls)[-2:]   # coarse, fine
+            rows["coarse_tied"] += ct
+            rows["coarse_rows"] += cr
+            rows["fine_tied"] += ft
+            rows["fine_rows"] += fr
+            rows["poses"] += 1
+            rows["poses_with_tie"] += int(ct + ft > 0)
+    finally:
+        binning._nearest_k = nearest
+    rows["max_per_tile"] = slam.settings.max_per_tile
+    return rows
+
+
+def small_episode(device):
+    """ActiveMapper on tests/test_engine.py's episode_cfg (48x48 frames, a
+    10 cm map, queue 8, 24 steps, FakeSim seed 3, mapper seed 0) on
+    `device`: (actions, plan_log)."""
+    from fisher_nerf_customized_tpu_torch.config import get_cfg_defaults
+    from fisher_nerf_customized_tpu_torch.engine.driver import ActiveMapper
+    from fisher_nerf_customized_tpu_torch.envs.fake_sim import (BoxScene,
+                                                                FakeSim)
+    from fisher_nerf_customized_tpu_torch.ops.camera import Camera
+    img = 48
+    cfg = get_cfg_defaults()
+    cfg.SLAM.Dataset.Calibration.merge_from_other(dict(
+        fx=float(img), fy=float(img), cx=img / 2, cy=img / 2, width=img,
+        height=img))
+    cfg.merge_from_list([
+        "policy.name", "gaussians_based", "policy.planning_queue_size", 8,
+        "num_frames", 24, "map_every", 6, "keyframe_every", 4,
+        "downsample_pcd", 2, "mapping.num_iters", 8,
+        "forward_step_size", 0.15, "turn_angle", 30.0,
+        "explore.cell_size", 0.1, "explore.sample_view_num", 16,
+        "explore.frontier_select_method", "combined", "tpu.capacity", 8192,
+        "tpu.tile_size", 8, "tpu.max_per_tile", 512, "tpu.pose_chunk", 4])
+    cam = Camera(fx=float(img), fy=float(img), cx=img / 2, cy=img / 2,
+                 width=img, height=img)
+    scene = BoxScene(room_lo=(-3, 0, -3), room_hi=(3, 2.5, 3),
+                     obstacles=[((1.0, 0.0, 1.0), (1.8, 1.8, 1.8))])
+    sim = FakeSim(scene, cam, forward_step=0.15, turn_angle=30.0, seed=3,
+                  device=device)
+    actions = []
+    sim_step = sim.step
+
+    def step(a):
+        actions.append(int(a))
+        return sim_step(a)
+
+    sim.step = step
+    mapper = ActiveMapper(cfg, sim, scene=scene, seed=0, device=device,
+                          eval_dir=os.path.join(HERE, "experiments",
+                                                "chip_smoke", f"small_{device}"))
+    mapper.test_navigation(n_eval_poses=0)
+    return actions, mapper.plan_log
+
+
+def check_device_split():
+    """The small episode on the card and on the CPU: the first step at
+    which the actions part, against the first planning event."""
+    card, card_log = small_episode("cuda")
+    cpu, cpu_log = small_episode("cpu")
+    split = next((i for i, (a, b) in enumerate(zip(card, cpu)) if a != b),
+                 None if len(card) == len(cpu) else min(len(card), len(cpu)))
+    first_event = cpu_log[0]["t"] if cpu_log else None
+    row = dict(steps=len(cpu), first_split=split, first_planning_event=first_event,
+               planning_events_card=len(card_log),
+               planning_events_cpu=len(cpu_log))
+    if split is not None:
+        if first_event is None or split < first_event:
+            raise AssertionError(f"card and CPU actions part at step {split},"
+                                 f" before the first planning event: {row}")
+        event = max((e for e in cpu_log if e["t"] <= split),
+                    key=lambda e: e["t"])
+        card_event = next((e for e in card_log if e["t"] == event["t"]), None)
+        top2 = np.sort(np.asarray(event["scores"])[
+            np.isfinite(event["scores"])])[-2:]
+        row.update(split_event_t=event["t"],
+                   cpu_best_two=[float(x) for x in top2],
+                   cpu_best=event["best"],
+                   card_best=None if card_event is None else card_event["best"],
+                   near_tie=bool(len(top2) == 2 and abs(top2[1] - top2[0])
+                                 <= 1e-2 * abs(top2[1])))
+    return row
 
 
 def capture_planning_event(mapper):
@@ -551,8 +868,23 @@ def check_planning_event(mapper, cap, report):
                 planner.pcd_far_distance)
     occ_ms, occ_launches = device_ms_and_launches(
         lambda: occ_update(*occ_args))
+    # the same update on the CPU, cell for cell
+    card_occ, card_pos = occ_update(*occ_args)
+    cpu_occ, cpu_pos = occ_update(*(
+        x.cpu() if isinstance(x, torch.Tensor) else x for x in occ_args))
+    off = (card_occ.cpu() != cpu_occ).any(dim=0)
     out.update(occupancy_device_ms=occ_ms, occupancy_launches=occ_launches,
-               occupancy_events_ms=cuda_ms(lambda: occ_update(*occ_args), 20))
+               occupancy_events_ms=cuda_ms(lambda: occ_update(*occ_args), 20),
+               occupancy_cells_off_cpu=int(off.sum()),
+               occupancy_values_off_cpu=int((card_occ.cpu() != cpu_occ).sum()),
+               occupancy_max_abs_off_cpu=float(
+                   (card_occ.cpu() - cpu_occ).abs().max()),
+               occupancy_cam_pos_equal=bool(torch.equal(card_pos.cpu(),
+                                                        cpu_pos)))
+    if int(off.sum()):
+        cells = torch.nonzero(off)[:8].tolist()
+        print(f"  occupancy: {int(off.sum())} cells differ from the CPU's, "
+              f"e.g. {cells}")
     return out
 
 
@@ -652,8 +984,8 @@ def main(argv=None):
     # anything else: run after the probe and the kernel phases, host-bound
     # mapping events read 1.7x slower (PERF.md)
     if not opts.kernels_only:
-        result, mapper, ep_wall_s, ep_launches = run_episode(
-            os.path.join(HERE, "experiments", "chip_smoke"))
+        ep_args, ep_cfg, result, mapper, ep_wall_s, ep_launches, ev = \
+            run_episode(os.path.join(HERE, "experiments", "chip_smoke"))
         timing = result["timing"]
         ep_row = dict(
             steps=result["steps"], done_reason=result["done_reason"],
@@ -669,10 +1001,11 @@ def main(argv=None):
                                                 n_paths=len(e["scores"]))
                                            for e in mapper.plan_log])
         phase("episode", **fmt(ep_row))
-        for name in ("tracking_mapping", "occupancy", "planning",
-                     "plan.global", "plan.sweep", "plan.global.wait",
-                     "plan.actions", "plan.h_train", "plan.rollout",
-                     "plan.path_eig", "prewarm", "sim_step", "habvis"):
+        for name in ("tracking_mapping", "occupancy", "pcl", "recon_metric",
+                     "eval", "planning", "plan.global", "plan.sweep",
+                     "plan.global.wait", "plan.actions", "plan.h_train",
+                     "plan.rollout", "plan.path_eig", "prewarm", "sim_step",
+                     "habvis"):
             if name in timing:
                 print(f"  timer {name}: {timing[name]}")
         if result["steps"] != EPISODE_STEPS:
@@ -688,6 +1021,19 @@ def main(argv=None):
             raise AssertionError("non-finite path-EIG scores")
         if not 0.0 < result["coverage_2d_pct"] <= 100.0:
             raise AssertionError(f"coverage {result['coverage_2d_pct']}")
+
+        # ---- the episode's evaluation and recon curve, its eval chunk
+        # against K1's twin, the resume, the ties at the K cut
+        ev_row, report["eval"] = check_eval(result, mapper, ev)
+        phase("eval", **fmt(ev_row))
+        report["eval_check"] = check_eval_chunk(mapper)
+        phase("eval_check", **fmt({k: v for k, v in
+                                   report["eval_check"].items()
+                                   if not isinstance(v, list)}))
+        report["resume"] = check_resume(ep_args, ep_cfg, result, mapper)
+        phase("resume", **fmt(report["resume"]))
+        report["tie_cut"] = count_cut_ties(mapper)
+        phase("tie_cut", **fmt(report["tie_cut"]))
 
     # ---- slice (the map-query path)
     if not opts.kernels_only:
@@ -1140,6 +1486,10 @@ def main(argv=None):
     report["plan_check"] = check_planning_event(mapper, cap, report)
     phase("plan_check", **fmt({k: v for k, v in report["plan_check"].items()
                                if not isinstance(v, (list, dict))}))
+    report["device_split"] = check_device_split()
+    phase("device_split", **fmt({k: v for k, v in
+                                 report["device_split"].items()
+                                 if not isinstance(v, list)}))
     nf20 = report["plan_check"]["k3_nf20"]
     entries["fisher_nf20"] = dict(
         name="fisher_nf20", route="cuda",

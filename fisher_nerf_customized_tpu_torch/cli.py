@@ -8,12 +8,19 @@ episode per scene on the hermetic FakeSim, one JSON line per scene.
 The flags are the JAX package's (cli.py); the episode runs on the card
 unless `--device cpu` is given.  Scene ids: `fake_apartment_<n>` (3x3
 rooms) or `fake_apartment<X>x<Z>_<n>` (X x Z rooms), any other id a
-single box room; the scene's seed is the crc32 of its id.  Not ported
-yet (ROADMAP.md), and so raising NotImplementedError: `--sim habitat`,
-`--object_scene`, `--dynamic_scene`, `--known_env`, `--resume`, the
-evaluation after the episode (`--eval_poses` above 0; the port's default
-is 0), `--eval_every`, `--lpips_weights`, `--dino_gate`,
-`--dino_weights` and `--ensemble_dir`.
+single box room; the scene's seed is the crc32 of its id.  After the
+episode, as in the JAX package: the map is evaluated over `--eval_poses`
+held-out poses (2000 by default; 0 skips it), the reconstruction metric
+runs against a ground-truth cloud of the scene's surfaces, and
+<log_dir>/<name>/<scene_id>/ gets the checkpoint (params<steps>.npz,
+keyframes.npz, astar.npz, global_pcl.npz, episode_rng.pkl,
+episode_state.npz), pointcloud/global_pcl_<steps>.ply,
+recon_metrics.yaml, metrics_curve.yaml, eval.json,
+<policy>_results.txt, eval_psnr_map.png and result.json.  `--resume
+--checkpoint <params file>` continues an episode from its checkpoint.
+Not ported yet (ROADMAP.md), and so raising NotImplementedError: `--sim
+habitat`, `--object_scene`, `--dynamic_scene`, `--known_env`,
+`--lpips_weights`, `--dino_gate`, `--dino_weights` and `--ensemble_dir`.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import json
 import os
 import re
 import zlib
+
+import numpy as np
 
 _NOT_PORTED = ("{} is not ported to the PyTorch package yet (ROADMAP.md, "
                "queue 1)")
@@ -50,10 +59,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--debug", action="store_true",
                    help="cap num_frames at 40 and mapping iterations at 10")
-    # the evaluation after the episode is not ported: 0 (the default)
-    # skips it, as in the JAX package
-    p.add_argument("--eval_poses", type=int, default=0)
-    p.add_argument("--eval_every", type=int, default=None)
+    # held-out poses of the evaluation after the episode (0 skips it)
+    p.add_argument("--eval_poses", type=int, default=2000)
+    p.add_argument("--eval_every", type=int, default=None,
+                   help="record a held-out PSNR/depth-MAE curve on a "
+                        "fixed pose set every N steps (cfg.eval_every)")
     p.add_argument("--save_data", action="store_true")
     p.add_argument("--ensemble_dir", default=None)
     p.add_argument("--object_scene", action="store_true")
@@ -76,10 +86,6 @@ def _check_ported(args):
                 (args.object_scene, "--object_scene"),
                 (args.dynamic_scene, "--dynamic_scene"),
                 (args.known_env, "--known_env"),
-                (args.resume, "--resume"),
-                (args.eval_poses > 0,
-                 "The episode evaluation (--eval_poses above 0)"),
-                (args.eval_every is not None, "--eval_every"),
                 (args.lpips_weights is not None, "--lpips_weights"),
                 (args.dino_gate or args.dino_weights is not None,
                  "The DINO gate (--dino_gate, --dino_weights)"),
@@ -108,21 +114,38 @@ def load_config(args):
             width=args.img_size, height=args.img_size,
             fx=args.img_size / 2, fy=args.img_size / 2,
             cx=args.img_size / 2, cy=args.img_size / 2))
+    if args.eval_every is not None:
+        cfg.eval_every = int(args.eval_every)
     if args.debug:
         cfg.mapping.num_iters = min(int(cfg.mapping.num_iters), 10)
         cfg.num_frames = min(int(cfg.num_frames), 40)
     if args.opts:
-        flat = [v for group in args.opts for v in group]
-        vals = []
-        for i, v in enumerate(flat):
-            if i % 2 == 1:
-                try:
-                    v = ast.literal_eval(v)
-                except (ValueError, SyntaxError):
-                    pass
-            vals.append(v)
-        cfg.merge_from_list(vals)
+        cfg.merge_from_list(literal_overrides(args.opts))
     return cfg
+
+
+def literal_overrides(groups) -> list:
+    """`--set` groups [[KEY, VALUE, ...], ...] as one KEY, VALUE list, each
+    VALUE through ast.literal_eval where it parses (else a string)."""
+    flat = [v for group in groups for v in group]
+    vals = []
+    for i, v in enumerate(flat):
+        if i % 2 == 1:
+            try:
+                v = ast.literal_eval(v)
+            except (ValueError, SyntaxError):
+                pass
+        vals.append(v)
+    return vals
+
+
+def _sample_gt(scene, density_per_m2: float = 2000.0):
+    """Ground-truth surface cloud of 2000 points per m² of the scene's
+    faces, clipped to 100 000 - 1 200 000 points (about 2.2 cm between
+    neighbours, well under the 5 cm threshold)."""
+    n = int(np.clip(scene.surface_area() * density_per_m2,
+                    100_000, 1_200_000))
+    return scene.sample_surface_points(n)
 
 
 def make_sim(args, cfg, scene_id: str):
@@ -150,15 +173,29 @@ def make_sim(args, cfg, scene_id: str):
 
 
 def run_scene(args, cfg, scene_id: str):
-    """One episode on one scene: (result dict, the ActiveMapper).  Writes
-    result.json under <log_dir>/<name>/<scene_id>/."""
+    """One episode on one scene: (result dict, the ActiveMapper).  With
+    --resume and --checkpoint the episode continues from its checkpoint.
+    After the episode it writes, under <log_dir>/<name>/<scene_id>/, the
+    checkpoint at the last step, pointcloud/global_pcl_<steps>.ply,
+    recon_metrics.yaml and result.json."""
     from .engine.driver import ActiveMapper
     sim, scene = make_sim(args, cfg, scene_id)
     eval_dir = os.path.join(cfg.workdir, cfg.run_name, scene_id)
     mapper = ActiveMapper(cfg, sim, scene=scene, eval_dir=eval_dir,
                           seed=args.seed, scene_id=scene_id,
                           device=args.device)
-    result = mapper.test_navigation()
+    if args.resume and args.checkpoint:
+        mapper.resume(args.checkpoint)
+    gt = _sample_gt(scene)
+    result = mapper.test_navigation(n_eval_poses=args.eval_poses,
+                                    recon_gt_points=gt)
+    steps = result["steps"]
+    # the loop ended before step `steps`, with the sim at its pose: a
+    # resume continues there
+    mapper.save_checkpoint(steps, sim_c2w=sim.c2w, resume_t=steps)
+    mapper.global_pcl.save_ply(os.path.join(
+        eval_dir, "pointcloud", f"global_pcl_{steps}.ply"))
+    mapper.metrics.dump(os.path.join(eval_dir, "recon_metrics.yaml"))
     with open(os.path.join(eval_dir, "result.json"), "w") as f:
         json.dump(result, f, indent=2, default=float)
     return result, mapper

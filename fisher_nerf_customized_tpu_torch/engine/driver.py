@@ -2,26 +2,42 @@
 
 Counterpart of the JAX package's engine/driver.py (the reference's
 NavTester.test_navigation): a host loop that feeds the simulator's
-RGB-D into GaussianSLAM.track_rgbd and the occupancy update, and plans
-whenever the action queue drains: frontier candidate poses scored by
-Fisher EIG (K3, 11-wide), one sweep field for their paths, the action
-compiler, then path EIG over at most 20 paths (K3, 20-wide), and the
-best path's actions are queued.
+RGB-D into GaussianSLAM.track_rgbd, the occupancy update and the global
+point cloud, and plans whenever the action queue drains: frontier
+candidate poses scored by Fisher EIG (K3, 11-wide), one sweep field for
+their paths, the action compiler, then path EIG over at most 20 paths
+(K3, 20-wide), and the best path's actions are queued.  Every 25 steps
+the running reconstruction metric takes the cloud's new points; with
+cfg.eval_every the held-out PSNR curve is recorded; every
+checkpoint_interval steps (offset to the middle of the mapping window)
+the episode is checkpointed.  After the loop the map is evaluated over
+held-out poses (eval_navigation) and the curves are written.
+
+Checkpoints (save_checkpoint / resume) hold the JAX package's files:
+params{t}.npz, keyframes.npz, astar.npz, global_pcl.npz,
+metrics_curve.yaml, episode_rng.pkl (the four numpy generator states) and
+episode_state.npz, written last as the commit record.  Unlike the JAX
+package's, each of the others carries the step t it belongs to, and
+resume refuses a group whose files name another step than the record;
+the record also holds the curve, the PLY-export latch, the SLAM run
+state (per-tile K, deferred checks) and the running metric's distances
+in float64.  resume reads a JAX checkpoint too (no steps: taken as is;
+its `last_goal`, which the JAX planner never reads, is not kept).
 
 Policies: 'gaussians_based' (FisherRF), 'frontier' (the same planning
 with uniform scores, first valid path) and 'random_walk'; with
 `traj_actions` the episode replays them (the 'traj_reader' fixture).  As
 in the JAX package, any other name plans as FisherRF does, without the
-H_train prewarm.  Not ported yet (ROADMAP.md): the object
-branch, UPEN, the DINO gate, the held-out eval curve, reconstruction
-metrics, the global point cloud, checkpoint/resume (the port writes no
-checkpoint), the cluster manager, pipelined planning and
-`explore.prune_invisible`; a config that turns one of them on raises
-NotImplementedError.
+H_train prewarm.  Not ported yet (ROADMAP.md): the object branch, UPEN,
+the DINO gate, the cluster manager, pipelined planning,
+`explore.prune_invisible` and the navigation images; a config that turns
+one of them on raises NotImplementedError.
 """
 from __future__ import annotations
 
+import json
 import os
+import pickle
 from collections import deque
 
 import numpy as np
@@ -30,8 +46,12 @@ import torch
 from ..models.slam import GaussianSLAM
 from ..planning.planner import (AstarPlanner, LocalizationError,
                                 NoFrontierError)
-from ..utils.logging_utils import StepTimer
+from ..utils.io import atomic_pickle, atomic_savez, valid_npz
+from ..utils.logging_utils import MetricsLogger, StepTimer
+from ..utils.pointcloud import GlobalPointCloud
 from .actions import action_planning, rollout_path_poses
+from .eval import (IncrementalReconMetric, MetricsRecorder,
+                   accuracy_comp_ratio_from_pcl, eval_navigation)
 from .path_eval import acc_step_indices, path_eig_scores
 
 _NOT_PORTED = ("{} is not ported to the PyTorch package yet (ROADMAP.md, "
@@ -49,13 +69,23 @@ def _check_ported(cfg, policy_name: str):
          "Pipelined planning (tpu.pipeline_planning)"),
         (bool(cfg.explore.prune_invisible),
          "explore.prune_invisible"),
-        (int(cfg.eval_every) > 0, "The held-out eval curve (eval_every)"),
         (bool(cfg.policy.save_nav_images),
          "The navigation images (policy.save_nav_images)"),
     ]
     for on, what in unported:
         if on:
             raise NotImplementedError(_NOT_PORTED.format(what))
+
+
+class TornCheckpointError(RuntimeError):
+    """A checkpoint file belongs to another step than the commit
+    record."""
+
+
+def _stamp(path: str):
+    """The step an npz checkpoint file names (`ckpt_t`), or None."""
+    with np.load(path) as d:
+        return int(d["ckpt_t"]) if "ckpt_t" in d.files else None
 
 
 class ActiveMapper:
@@ -82,16 +112,28 @@ class ActiveMapper:
             self.planner.set_clearance(float(agent_r))
         self.queue: deque[int] = deque()
         self.rng = np.random.default_rng(seed)
+        self.global_pcl = GlobalPointCloud(keep_ratio=0.05, seed=seed)
+        self.metrics = MetricsRecorder(self.policy_name, self.scene_id)
         self.traj_actions = list(traj_actions) if traj_actions else None
 
         self.forward_step = float(cfg.forward_step_size)
         self.turn_angle = float(cfg.turn_angle)
         self.queue_size = int(cfg.policy.planning_queue_size)
         self.max_steps = int(cfg.num_frames)
+        self.checkpoint_interval = int(cfg.checkpoint_interval)
         self.stuck_count = 0      # consecutive blocked forwards
         self.stuck_total = 0      # lifetime blocked forwards (recorded)
         self.plan_watermark = int(cfg.tpu.get("plan_watermark", 2))
+        self._inc_recon = None
+        self._inc_recon_saved = None   # the running metric of a checkpoint
+        self._pcl_skip = 0             # its points already in the cloud
+        self._pcl_cursor = 0
+        self._pcl_1000_saved = False   # the step-1000 PLY export latch
+        self._eval_curve = None
+        self._resume_t = None
         self.timer = StepTimer()
+        self.mlog = MetricsLogger(self.eval_dir, cfg.run_name,
+                                  use_wandb=bool(cfg.use_wandb))
         self.habvis = None
         # one entry per planning event that chose a path: its step, the
         # path scores (path EIG, or None for 'frontier') and the choice
@@ -239,13 +281,24 @@ class ActiveMapper:
                 for _ in range(self.queue_size)]
 
     # -- main loop ----------------------------------------------------------
-    def test_navigation(self, on_step=None) -> dict:
+    def test_navigation(self, n_eval_poses: int | None = None,
+                        recon_gt_points=None, on_step=None) -> dict:
         """Run the episode to max_steps (cfg.num_frames), the end of
-        traj_actions, an exhausted frontier or a stuck agent.  Returns the
-        result dict: steps, done_reason, the per-phase timer and, with a
-        scene, coverage_2d_pct."""
-        obs = self._init_episode()
-        t = 0
+        traj_actions, an exhausted frontier or a stuck agent; after
+        resume(), from the checkpoint's step.  With `recon_gt_points`, the
+        reconstruction metric runs every 25 steps and at the end.  Unless
+        n_eval_poses is 0, the map is evaluated over n_eval_poses held-out
+        poses (2000 for None) at the end.  Returns the result dict: steps,
+        done_reason, the per-phase timer, planning_events and, with a
+        scene, coverage_2d_pct, `eval`; with a ground-truth cloud, `recon`
+        and `auc`."""
+        if self._resume_t is not None:
+            obs = self.sim.get_observations()
+            t, self._resume_t = self._resume_t, None
+        else:
+            obs = self._init_episode()
+            t = 0
+        c2w = obs["c2w"]
         done_reason = "max_steps"
         while t < self.max_steps:
             c2w = obs["c2w"]
@@ -259,6 +312,9 @@ class ActiveMapper:
                                      gt_w2c=np.linalg.inv(c2w))
             with self.timer.phase("occupancy"):
                 self.planner.update_occ_map(obs["depth"], c2w, t)
+            with self.timer.phase("pcl"):
+                self.global_pcl.add_frame(obs["depth"], self.sim.intrinsics,
+                                          c2w, color=obs["rgb"])
 
             if self.traj_actions is not None:
                 if t >= len(self.traj_actions):
@@ -305,9 +361,41 @@ class ActiveMapper:
                         break
                 else:
                     self.stuck_count = 0
+
+            # held-out PSNR / depth-MAE curve on a fixed pose set
+            ev_every = int(self.cfg.eval_every)
+            if (ev_every > 0 and t > 0 and t % ev_every == 0
+                    and self.scene is not None
+                    and hasattr(self.sim, "render_at")):
+                with self.timer.phase("eval_curve"):
+                    if self._eval_curve is None:
+                        from .eval import EvalPoseCurve
+                        self._eval_curve = EvalPoseCurve(
+                            self.scene, self.sim,
+                            cam_height=float(c2w[1, 3]))
+                    em = self._eval_curve.update(self.slam)
+                    self.metrics.record(t, **em)
+                    self.mlog.log(t, **em)
+            if recon_gt_points is not None and t % 25 == 0:
+                with self.timer.phase("recon_metric"):
+                    m = self._recon_update(recon_gt_points)
+                    self.metrics.record(t, **m)
+                    self.mlog.log(t, **m, n_gaussians=self.slam.n_active)
             if self.habvis is not None:
                 with self.timer.phase("habvis"):
                     self.habvis.update_fow_sim(obs["c2w"])
+            # the checkpoint cadence is offset to the middle of the mapping
+            # window, where the device is idle and the state pull is a copy
+            ck_off = (int(self.cfg.map_every) // 2) % self.checkpoint_interval
+            if t > ck_off and t % self.checkpoint_interval == ck_off:
+                # the sim has already moved to step t+1's pose
+                self.save_checkpoint(t, sim_c2w=obs["c2w"], resume_t=t + 1)
+            if t >= 1000 and not self._pcl_1000_saved:
+                # the cloud at step 1000 (and at the end, by the CLI)
+                self._pcl_1000_saved = True
+                with self.timer.phase("pcl_export"):
+                    self.global_pcl.save_ply(os.path.join(
+                        self.eval_dir, "pointcloud", "global_pcl_1000.ply"))
             if on_step is not None:
                 on_step(t, obs)
             t += 1
@@ -321,4 +409,195 @@ class ActiveMapper:
                       timing=self.timer.summary())
         if self.habvis is not None:
             result["coverage_2d_pct"] = self.habvis.coverage_2d()
+        if n_eval_poses != 0 and self.scene is not None and \
+                hasattr(self.sim, "render_at"):
+            seen_fn = None
+            if self.habvis is not None:
+                hv = self.habvis
+
+                def seen_fn(x, z, _hv=hv):
+                    cx, cz = _hv._to_cell(x, z)
+                    gz, gx = _hv.fow_mask.shape
+                    return bool(0 <= cz < gz and 0 <= cx < gx
+                                and _hv.fow_mask[cz, cx])
+            with self.timer.phase("eval"):
+                nav_eval = eval_navigation(self.slam, self.sim, self.scene,
+                                           n_poses=n_eval_poses or 2000,
+                                           cam_height=float(c2w[1, 3]),
+                                           out_dir=self.eval_dir,
+                                           seen_fn=seen_fn)
+            result["eval"] = {k: v for k, v in nav_eval.items()
+                              if k != "per_pose"}
+            result["timing"]["eval"] = self.timer.summary()["eval"]
+            with open(os.path.join(self.eval_dir, "eval.json"), "w") as f:
+                json.dump(nav_eval["per_pose"], f)
+            with open(os.path.join(self.eval_dir,
+                                   f"{self.policy_name}_results.txt"),
+                      "w") as f:
+                for k, v in result["eval"].items():
+                    f.write(f"{k}: {v}\n")
+        if recon_gt_points is not None:
+            if self._inc_recon is not None or \
+                    self._inc_recon_saved is not None:
+                # the running state is the one-shot metric on the whole
+                # cloud (an exact decomposition)
+                result["recon"] = self._recon_update(recon_gt_points)
+            else:
+                result["recon"] = accuracy_comp_ratio_from_pcl(
+                    self.global_pcl.get(), recon_gt_points, 0.05,
+                    surface_dist_fn=getattr(self.scene, "surface_distance",
+                                            None))
+            result["auc"] = self.metrics.auc()
+        if self.metrics.steps:
+            self.metrics.dump(os.path.join(self.eval_dir,
+                                           "metrics_curve.yaml"))
         return result
+
+    def _recon_update(self, recon_gt_points) -> dict:
+        """Feed the running reconstruction metric the cloud's new points.
+        After a resume the restored running state stands for the loaded
+        cloud's first points (append-only, same order: the skip is
+        exact)."""
+        if self._inc_recon is None:
+            self._inc_recon = IncrementalReconMetric(
+                recon_gt_points, 0.05,
+                surface_dist_fn=getattr(self.scene, "surface_distance",
+                                        None))
+            if self._inc_recon_saved is not None:
+                if self._inc_recon.load_state_dict(self._inc_recon_saved):
+                    self._pcl_skip = self._inc_recon.n_est
+                self._inc_recon_saved = None
+        new_pts, self._pcl_cursor = self.global_pcl.get_new(
+            self._pcl_cursor)
+        if self._pcl_skip:
+            k = min(self._pcl_skip, len(new_pts))
+            new_pts = new_pts[k:]
+            self._pcl_skip -= k
+        return self._inc_recon.update(new_pts)
+
+    # -- checkpoint / resume ------------------------------------------------
+    def _path(self, name: str) -> str:
+        return os.path.join(self.eval_dir, name)
+
+    def save_checkpoint(self, t: int, sim_c2w=None,
+                        resume_t: int | None = None):
+        """Checkpoint the episode as step t.  sim_c2w: the simulator's
+        current pose (the in-loop checkpoint comes after the sim stepped
+        past the last tracked frame); resume_t: the step the resumed loop
+        starts at (default t + 1: step t is done)."""
+        self.slam.save(t)
+        self.planner.save(self._path("astar.npz"), ckpt_t=int(t))
+        self.global_pcl.save(self._path("global_pcl.npz"), ckpt_t=int(t))
+        self.metrics.dump(self._path("metrics_curve.yaml"))
+        record = dict(
+            t=int(t), stuck_count=int(self.stuck_count),
+            stuck_total=int(self.stuck_total),
+            resume_t=int(t + 1 if resume_t is None else resume_t),
+            sim_c2w=(np.zeros((0, 4, 4), np.float32) if sim_c2w is None
+                     else np.asarray(sim_c2w, np.float32)[None]),
+            queue=np.asarray(list(self.queue), np.int64),
+            pcl_1000_saved=bool(self._pcl_1000_saved),
+            metrics_curve=json.dumps(dict(header=self.metrics.header,
+                                          steps=self.metrics.steps)),
+            **{f"slam_{k}": v for k, v in self.slam.run_state().items()})
+        inc = (self._inc_recon.state_dict() if self._inc_recon is not None
+               else self._inc_recon_saved)
+        if inc is not None:
+            record.update(inc_recon_d_gt_min=np.asarray(inc["d_gt_min"],
+                                                        np.float64),
+                          inc_recon_acc=np.asarray(inc["acc"], np.float64))
+        if self.habvis is not None:
+            hv = self.habvis.state_dict()
+            record.update(habvis_fow=hv["fow_mask"],
+                          habvis_traj=np.asarray(hv["traj"]).reshape(-1, 2),
+                          habvis_obj=np.asarray(hv["obj_traj"]).reshape(-1,
+                                                                        2))
+        # without the generator states a resumed episode's draws part
+        # from the uninterrupted run's
+        atomic_pickle(self._path("episode_rng.pkl"), dict(
+            t=int(t), driver=self.rng.bit_generator.state,
+            planner=self.planner.rng.bit_generator.state,
+            slam=self.slam.rng.bit_generator.state,
+            pcl=self.global_pcl.rng.bit_generator.state))
+        # the commit record, last: a kill before it leaves the previous
+        # group in force
+        atomic_savez(self._path("episode_state.npz"), **record)
+
+    def resume(self, slam_ckpt: str):
+        """Restore the episode from a checkpoint, and the simulator's
+        pose; the next test_navigation() continues at the checkpoint's
+        step.  When episode_state.npz (the commit record) names a step t
+        whose params{t}.npz loads, that file is used, whatever
+        `slam_ckpt` says.  A file of the group stamped with another step
+        than the record's raises TornCheckpointError."""
+        ep_path = self._path("episode_state.npz")
+        ep = None
+        if os.path.exists(ep_path) and valid_npz(ep_path):
+            with np.load(ep_path) as d:
+                ep = {k: d[k] for k in d.files}
+            committed = self._path(f"params{int(ep['t'])}.npz")
+            if os.path.exists(committed) and valid_npz(committed):
+                slam_ckpt = committed
+        t_rec = None if ep is None else int(ep["t"])
+        rng_path = self._path("episode_rng.pkl")
+        states = None
+        if os.path.exists(rng_path):
+            with open(rng_path, "rb") as f:
+                states = pickle.load(f)
+        if t_rec is not None:
+            stamps = {name: _stamp(self._path(name))
+                      for name in ("keyframes.npz", "astar.npz",
+                                   "global_pcl.npz")
+                      if os.path.exists(self._path(name))}
+            if states is not None:
+                stamps["episode_rng.pkl"] = states.get("t")
+            torn = {k: v for k, v in stamps.items()
+                    if v is not None and v != t_rec}
+            if torn:
+                raise TornCheckpointError(
+                    f"checkpoint files of other steps than the commit "
+                    f"record's t={t_rec}: {torn}")
+
+        self.slam.load(slam_ckpt)
+        if os.path.exists(self._path("astar.npz")):
+            self.planner.load(self._path("astar.npz"))
+            self.planner.camera = self.slam.camera
+        if os.path.exists(self._path("global_pcl.npz")):
+            self.global_pcl.load(self._path("global_pcl.npz"))
+        if ep is not None and "metrics_curve" in ep:
+            curve = json.loads(str(ep["metrics_curve"]))
+            self.metrics.header = dict(curve["header"])
+            self.metrics.steps = [dict(s) for s in curve["steps"]]
+        elif os.path.exists(self._path("metrics_curve.yaml")):
+            self.metrics.load(self._path("metrics_curve.yaml"))
+        if ep is not None:
+            self.stuck_count = int(ep["stuck_count"])
+            self.stuck_total = int(ep["stuck_total"]) \
+                if "stuck_total" in ep else self.stuck_count
+            if "inc_recon_d_gt_min" in ep:
+                self._inc_recon_saved = dict(d_gt_min=ep["inc_recon_d_gt_min"],
+                                             acc=ep["inc_recon_acc"])
+            self.queue = deque(int(a) for a in ep["queue"])
+            self._pcl_1000_saved = bool(ep.get("pcl_1000_saved", False))
+            if "slam_max_per_tile" in ep:
+                self.slam.load_run_state({
+                    k[len("slam_"):]: v for k, v in ep.items()
+                    if k.startswith("slam_")})
+            self._make_habvis()
+            if self.habvis is not None and "habvis_fow" in ep:
+                self.habvis.load_state_dict(dict(
+                    fow_mask=ep["habvis_fow"], traj=ep["habvis_traj"],
+                    obj_traj=ep["habvis_obj"]))
+            self._resume_t = int(ep["resume_t"]) if "resume_t" in ep \
+                else int(ep["t"]) + 1
+            if "sim_c2w" in ep and len(ep["sim_c2w"]):
+                self.sim.set_pose(ep["sim_c2w"][0])
+            else:
+                self.sim.set_pose(self.slam.get_latest_frame())
+        else:
+            self.sim.set_pose(self.slam.get_latest_frame())
+        if states is not None:
+            self.rng.bit_generator.state = states["driver"]
+            self.planner.rng.bit_generator.state = states["planner"]
+            self.slam.rng.bit_generator.state = states["slam"]
+            self.global_pcl.rng.bit_generator.state = states["pcl"]

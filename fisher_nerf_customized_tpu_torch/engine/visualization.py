@@ -5,8 +5,9 @@ Counterpart of the JAX package's engine/visualization.py MapVisualizer
 aligned with the planner's map and a fog-of-war mask that each step's
 field-of-view wedge reveals; coverage_2d is the revealed share of the
 navigable cells.  The wedge is drawn by utils/raster.fill_poly, cv2's
-fillPoly without cv2.  Drawing the map, the PNG export and the
-checkpoint hooks are not ported yet (ROADMAP.md).
+fillPoly without cv2.  state_dict/load_state_dict carry the mask and the
+agent's cells through a checkpoint.  Drawing the map and the PNG export
+are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ class MapVisualizer:
         self.fov = np.deg2rad(fov_deg)
         self.vis_range = float(vis_range)
         self.fow_mask = np.zeros_like(self.gt_free, bool)
+        self.traj: list[tuple[int, int]] = []       # the agent's cells
+        self.obj_traj: list[tuple[int, int]] = []   # a dynamic object's
 
     def _to_cell(self, x, z):
         gz, gx = self.gt_free.shape
@@ -38,6 +41,7 @@ class MapVisualizer:
         """Reveal the field-of-view wedge ahead of the camera."""
         c2w = np.asarray(c2w, np.float64)
         cx, cz = self._to_cell(c2w[0, 3], c2w[2, 3])
+        self.traj.append((cx, cz))
         fwd = c2w[:3, :3] @ np.array([0.0, 0.0, 1.0])
         yaw = np.arctan2(fwd[0], fwd[2])
         r_cells = int(self.vis_range / self.cell_size)
@@ -52,3 +56,14 @@ class MapVisualizer:
         """% of the navigable cells revealed."""
         total = self.gt_free.sum()
         return float(self.fow_mask.sum() / max(total, 1) * 100.0)
+
+    # checkpoint hooks
+    def state_dict(self):
+        return dict(fow_mask=self.fow_mask, traj=np.asarray(self.traj),
+                    obj_traj=np.asarray(self.obj_traj))
+
+    def load_state_dict(self, d):
+        self.fow_mask = np.asarray(d["fow_mask"], bool)
+        self.traj = [tuple(p) for p in np.asarray(d["traj"]).reshape(-1, 2)]
+        self.obj_traj = [tuple(p) for p in
+                         np.asarray(d["obj_traj"]).reshape(-1, 2)]

@@ -137,6 +137,86 @@ class BoxScene:
                 return False
         return True
 
+    def sample_navigable(self, rng: np.random.Generator,
+                         n: int) -> np.ndarray:
+        """n navigable (x, z) positions, (n, 2) float32, by rejection from
+        the room's bounds (two uniform draws per try)."""
+        out = []
+        lo, hi = self.room_lo, self.room_hi
+        while len(out) < n:
+            x = rng.uniform(lo[0], hi[0])
+            z = rng.uniform(lo[2], hi[2])
+            if self.is_navigable((x, 0.0, z)):
+                out.append((x, z))
+        return np.asarray(out, np.float32)
+
+    # -- ground truth for evaluation ---------------------------------------
+    def sample_surface_points(self, n: int, rng=None,
+                              interior_only: bool = True) -> np.ndarray:
+        """n area-weighted uniform samples of every box face, (n, 3)
+        float32: the ground-truth cloud of the reconstruction metrics."""
+        rng = rng or np.random.default_rng(0)
+        faces = []   # (origin, edge_u, edge_v)
+
+        def add_box(lo, hi):
+            lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+            d = hi - lo
+            faces.extend([
+                (np.array([lo[0], lo[1], lo[2]]), np.array([0, d[1], 0]),
+                 np.array([0, 0, d[2]])),                           # x-
+                (np.array([hi[0], lo[1], lo[2]]), np.array([0, d[1], 0]),
+                 np.array([0, 0, d[2]])),                           # x+
+                (np.array([lo[0], lo[1], lo[2]]), np.array([d[0], 0, 0]),
+                 np.array([0, 0, d[2]])),                           # y-
+                (np.array([lo[0], hi[1], lo[2]]), np.array([d[0], 0, 0]),
+                 np.array([0, 0, d[2]])),                           # y+
+                (np.array([lo[0], lo[1], lo[2]]), np.array([d[0], 0, 0]),
+                 np.array([0, d[1], 0])),                           # z-
+                (np.array([lo[0], lo[1], hi[2]]), np.array([d[0], 0, 0]),
+                 np.array([0, d[1], 0])),                           # z+
+            ])
+        add_box(self.room_lo, self.room_hi)
+        for lo, hi in self.obstacles:
+            add_box(lo, hi)
+        origins = np.stack([f[0] for f in faces])
+        e_u = np.stack([f[1] for f in faces])
+        e_v = np.stack([f[2] for f in faces])
+        areas = np.linalg.norm(np.cross(e_u, e_v), axis=1)
+        probs = areas / areas.sum()
+        idx = rng.choice(len(faces), size=n, p=probs)
+        us, vs = rng.uniform(size=(2, n, 1))
+        pts = origins[idx] + us * e_u[idx] + vs * e_v[idx]
+        return pts.astype(np.float32)
+
+    def surface_area(self) -> float:
+        """Total area (m²) of every box face; it sizes the ground-truth
+        cloud (cli._sample_gt)."""
+        def box_area(lo, hi):
+            d = np.asarray(hi, np.float64) - np.asarray(lo, np.float64)
+            return 2.0 * (d[0] * d[1] + d[1] * d[2] + d[0] * d[2])
+        area = box_area(self.room_lo, self.room_hi)
+        for lo, hi in self.obstacles:
+            area += box_area(lo, hi)
+        return float(area)
+
+    def surface_distance(self, pts: np.ndarray) -> np.ndarray:
+        """Exact distance (float64) from each point to the nearest box
+        surface: |SDF| of each axis-aligned box, the minimum over boxes.
+        Accuracy and FPR use it in place of the sampled ground-truth cloud,
+        which has no sampling floor; faces buried in walls count as
+        surface."""
+        p = np.asarray(pts, np.float64).reshape(-1, 3)
+        best = np.full(len(p), np.inf)
+        boxes = [(self.room_lo, self.room_hi)] + list(self.obstacles)
+        for lo, hi in boxes:
+            lo = np.asarray(lo, np.float64)
+            hi = np.asarray(hi, np.float64)
+            q = np.abs(p - (lo + hi) / 2.0) - (hi - lo) / 2.0
+            outside = np.linalg.norm(np.maximum(q, 0.0), axis=1)
+            inside = np.minimum(np.max(q, axis=1), 0.0)
+            np.minimum(best, np.abs(outside + inside), out=best)
+        return best.astype(np.float64)
+
     def gt_free_map(self, cell_size: float, grid_dim, map_center) -> np.ndarray:
         """Top-down (Gz, Gx) bool grid of navigable cell centres, the
         denominator of 2D coverage."""
@@ -152,8 +232,11 @@ class BoxScene:
 
 def _raycast_device(lo, hi, inward, seeds, c2w, camera: Camera):
     """Per-pixel nearest-hit AABB raycast in plain torch on the tensors'
-    device.  lo, hi (B, 3), inward (B,) bool, seeds (B,), c2w (4, 4).
-    Returns rgb (H, W, 3), z-depth (H, W) and the hit box id (H, W).
+    device.  lo, hi (B, 3), inward (B,) bool, seeds (B,), c2w (4, 4) or
+    (P, 4, 4).  Returns rgb (H, W, 3), z-depth (H, W) and the hit box id
+    (H, W), each with a leading P for a stack of poses.  Every pixel's
+    arithmetic is the same elementwise chain at any P, so a pose of a
+    stack gets the frame it gets alone.
 
     The checker color flips across faces that lie on the 0.5 m grid (the
     room shell), where it is decided by the last bit of the hit point.  So
@@ -162,6 +245,8 @@ def _raycast_device(lo, hi, inward, seeds, c2w, camera: Camera):
     length, the ray direction as a left-to-right sum, and the hit point as
     one fused multiply-add (emulated in f64, exact but for a rare double
     rounding)."""
+    single = c2w.dim() == 2
+    c2w = c2w.reshape(-1, 4, 4)
     dev = lo.device
     h, w = camera.height, camera.width
     f32 = torch.float32
@@ -170,18 +255,20 @@ def _raycast_device(lo, hi, inward, seeds, c2w, camera: Camera):
     xs = (torch.arange(w, dtype=f32, device=dev) - camera.cx) \
         * torch.tensor(1.0 / camera.fx, dtype=f32)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
-    R = c2w[:3, :3]
-    dirs_w = (gx[..., None] * R[:, 0] + gy[..., None] * R[:, 1]) + R[:, 2]
-    origin = c2w[:3, 3]
+    R = c2w[:, None, None, :3, :3]                           # (P, 1, 1, 3, 3)
+    dirs_w = (gx[..., None] * R[..., 0] + gy[..., None] * R[..., 1]) \
+        + R[..., 2]                                          # (P, H, W, 3)
+    origin = c2w[:, None, None, :3, 3]                       # (P, 1, 1, 3)
 
     safe = torch.where(torch.abs(dirs_w) < 1e-9,
                        torch.full_like(dirs_w, 1e-9), dirs_w)
     inv_d = 1.0 / safe
-    t0 = (lo[:, None, None, :] - origin) * inv_d[None]
-    t1 = (hi[:, None, None, :] - origin) * inv_d[None]
+    box = (slice(None), None, None, None)
+    t0 = (lo[box] - origin) * inv_d[None]                    # (B, P, H, W, 3)
+    t1 = (hi[box] - origin) * inv_d[None]
     tmin = torch.minimum(t0, t1).amax(dim=-1)
     tmax = torch.maximum(t0, t1).amin(dim=-1)
-    t_hit = torch.where(inward[:, None, None], tmax, tmin)
+    t_hit = torch.where(inward[box], tmax, tmin)
     hit_ok = (tmax >= torch.clamp(tmin, min=0.0)) & (t_hit > 1e-4)
     t_hit = torch.where(hit_ok, t_hit, torch.full_like(t_hit, float("inf")))
     best = torch.argmin(t_hit, dim=0)                        # first minimum
@@ -204,7 +291,10 @@ def _raycast_device(lo, hi, inward, seeds, c2w, camera: Camera):
         hit_pt[..., 2] * 7.0)
     rgb = torch.stack([base_r * shade * stripes, base_g * shade,
                        base_b * (1.25 - 0.25 * checker)], dim=-1)
-    return torch.clamp(rgb, 0.0, 1.0), t_best, best
+    rgb = torch.clamp(rgb, 0.0, 1.0)
+    if single:
+        return rgb[0], t_best[0], best[0]
+    return rgb, t_best, best
 
 
 class FakeSim:
@@ -212,7 +302,8 @@ class FakeSim:
     set_pose / render_at / intrinsics, with actions 1 = fwd, 2 = left,
     3 = right.
     Observations are dict(rgb (H, W, 3), depth (H, W)) tensors on
-    `device` plus the host c2w."""
+    `device` plus the host c2w; render_at_batch renders a stack of poses
+    in one raycast (the evaluation's ground truth)."""
 
     def __init__(self, scene: BoxScene, camera: Camera,
                  forward_step: float = 0.065, turn_angle: float = 10.0,
@@ -272,6 +363,13 @@ class FakeSim:
     def render_at(self, c2w):
         """Ground-truth (rgb, depth) tensors at a c2w pose."""
         rgb, depth, _hit = self._raycast(c2w)
+        return rgb, depth
+
+    def render_at_batch(self, c2ws):
+        """Ground-truth rgb (P, H, W, 3) and depth (P, H, W) tensors at
+        (P, 4, 4) c2w poses, in one raycast; pose i equals render_at at
+        pose i to the bit."""
+        rgb, depth, _hit = self._raycast(c2ws)
         return rgb, depth
 
     def is_navigable(self, pos) -> bool:

@@ -37,6 +37,7 @@ from ..ops.image import calc_ssim
 from ..ops.projection import preprocess
 from ..ops.rasterize import RenderSettings, render, render_prebinned
 from ..utils.geometry import invert_se3
+from ..utils.io import atomic_save_npy, atomic_savez
 from .gaussian_state import (GaussianState, PARAM_KEYS, adam_init, adam_step,
                              add_gaussians, empty_state, grow_state,
                              prune_compact, state_from_numpy, state_to_numpy)
@@ -328,17 +329,6 @@ def _pose_scores(state: GaussianState, w2cs, h_train_inv, camera: Camera,
     out = _fisher_batch(state, w2cs, camera, settings, full_chain,
                         grad_value)
     return torch.sum(out["H"] * h_train_inv[None], dim=(1, 2))
-
-
-def _atomic_savez(path: str, **arrays) -> None:
-    """np.savez with write-to-tmp + rename, so a reader never sees a torn
-    file."""
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
 
 
 def _pad_poses(w2cs: np.ndarray, ck: int) -> np.ndarray:
@@ -757,24 +747,50 @@ class GaussianSLAM:
 
     # checkpointing ---------------------------------------------------------
     def save(self, time_idx: int):
-        """Write params{time_idx}.npz and keyframes.npz in the JAX
-        package's format."""
+        """Write params{time_idx}.npz, keyframe_time_indices{time_idx}.npy
+        and keyframes.npz in the JAX package's format; keyframes.npz also
+        carries `ckpt_t` = time_idx, the checkpoint it belongs to."""
         os.makedirs(self.eval_dir, exist_ok=True)
         path = os.path.join(self.eval_dir, f"params{time_idx}.npz")
         arrs = state_to_numpy(self.state)
-        _atomic_savez(
+        atomic_savez(
             path, n_active=self.n_active, timestep=arrs["timestep"],
             poses_w2c=np.stack(self.poses_w2c),
             keyframe_time_indices=np.asarray(self.keyframe_time_indices),
             **{k: arrs[k] for k in PARAM_KEYS})
+        atomic_save_npy(os.path.join(
+            self.eval_dir, f"keyframe_time_indices{time_idx}.npy"),
+            np.asarray(self.keyframe_time_indices))
         if len(self.keyframes):
             kf = self.keyframes.state_dict()
-            _atomic_savez(
+            atomic_savez(
                 os.path.join(self.eval_dir, "keyframes.npz"),
                 colors=np.stack(kf["colors"]).astype(np.float16),
                 depths=np.stack(kf["depths"]).astype(np.float16),
-                w2cs=np.stack(kf["w2cs"]), ids=np.asarray(kf["ids"]))
+                w2cs=np.stack(kf["w2cs"]), ids=np.asarray(kf["ids"]),
+                ckpt_t=int(time_idx))
         return path
+
+    def run_state(self) -> dict:
+        """What an episode's run has set beside the parameters, as arrays:
+        the per-tile K after its adaptive bumps, and the deferred
+        binning-overflow and densify checks not yet applied (empty when
+        none is pending).  Restored by load_run_state, a resumed run bins
+        as the uninterrupted run does."""
+        def ints(pair):
+            return np.asarray([] if pair is None else [int(x) for x in pair],
+                              np.int64)
+        return dict(max_per_tile=int(self.settings.max_per_tile),
+                    pending_bump=ints(getattr(self, "_pending_bump", None)),
+                    densify_guard=ints(getattr(self, "_densify_guard",
+                                               None)))
+
+    def load_run_state(self, d):
+        self.settings = self.settings._replace(
+            max_per_tile=int(d["max_per_tile"]))
+        pb, dg = np.asarray(d["pending_bump"]), np.asarray(d["densify_guard"])
+        self._pending_bump = tuple(int(x) for x in pb) if len(pb) else None
+        self._densify_guard = tuple(int(x) for x in dg) if len(dg) else None
 
     def load(self, path: str):
         """Read a params npz (and the keyframes.npz beside it) written by

@@ -37,17 +37,32 @@ class TileBins(NamedTuple):
 
 
 def _nearest_k(scores, k: int):
-    """Per-row top-k of `scores` (higher = nearer).  Rows come out in
-    descending score, i.e. front to back; equal scores are ordered by
-    index (lax.top_k's order), which torch.topk does not promise."""
+    """Per-row top-k of `scores` (higher = nearer), as lax.top_k selects
+    and orders them: every score above the k-th value v is kept, and of
+    the scores tied at v the lowest-index ones, up to k in all; the kept
+    rows come out in (score descending, index ascending) order, i.e.
+    front to back with ties in index order.  torch.topk keeps an
+    arbitrary subset of the scores tied at v, so it gives v and the
+    scores above it; a second top-k over the tie mask, keyed by the
+    complement of the index, gives the lowest-index ties."""
     n = scores.shape[-1]
     if n < k:
         pad = scores.new_full(scores.shape[:-1] + (k - n,), _NEG_INF)
         scores = torch.cat([scores, pad], dim=-1)
+    m = scores.shape[-1]
     vals, idx = torch.topk(scores, k, dim=-1, sorted=True)
-    idx, perm = torch.sort(idx, dim=-1)
-    vals = torch.gather(vals, -1, perm)
-    vals, perm = torch.sort(vals, dim=-1, descending=True, stable=True)
+    v = vals[..., -1:]
+    n_above = (vals > v).sum(dim=-1, keepdim=True)
+    rev = torch.arange(m, 0, -1, dtype=torch.int32, device=scores.device)
+    tie_key = torch.where(scores == v, rev, torch.zeros_like(rev))
+    tie_idx = torch.topk(tie_key, k, dim=-1, sorted=True).indices
+    pos = torch.arange(k, device=scores.device)
+    idx = torch.where(pos < n_above, idx, torch.gather(
+        tie_idx, -1, torch.clamp(pos - n_above, min=0)))
+    # (score desc, index asc): by index, then stably by score
+    idx, _ = torch.sort(idx, dim=-1)
+    vals, perm = torch.sort(torch.gather(scores, -1, idx), dim=-1,
+                            descending=True, stable=True)
     idx = torch.gather(idx, -1, perm)
     return torch.clamp(idx, max=n - 1), vals > _NEG_INF
 

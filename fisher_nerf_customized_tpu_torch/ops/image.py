@@ -36,6 +36,12 @@ def _filter_sep(img, g1d):
 
 def calc_ssim(img1, img2, window_size: int = 11):
     """Mean SSIM over the image; img (H, W, C) in [0, 1]."""
+    return ssim_map(img1, img2, window_size).mean()
+
+
+def ssim_map(img1, img2, window_size: int = 11):
+    """Per-pixel, per-channel SSIM (H, W, C); each channel is filtered on
+    its own, so channels may hold different images."""
     g = _gaussian_window_np(window_size)
     img1 = img1.float()
     img2 = img2.float()
@@ -56,9 +62,9 @@ def calc_ssim(img1, img2, window_size: int = 11):
     cs_bound = torch.sqrt(sigma1_sq * sigma2_sq).detach()
     sigma12 = torch.maximum(torch.minimum(m12 - mu1_mu2, cs_bound), -cs_bound)
     c1, c2 = 0.01 ** 2, 0.03 ** 2
-    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
+    ssim = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
-    return ssim_map.mean()
+    return ssim
 
 
 def calc_psnr(img1, img2):

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's planning/planner.py (the reference
 AstarPlanner's API): init / update_occ_map / build_frontiers /
 setup_start / planning / global_planning / add_obstacle /
-convert_to_map / convert_to_world / pose_eval (a uniform stub).  The
+convert_to_map / convert_to_world / pose_eval (a uniform stub) /
+save / load.  The
 (3, Gz, Gx) occupancy map stays on the planner's device and takes one
 vote update per frame (planning/occupancy.py); a planning event pulls its
 uint8 label map once and runs the morphology, connected components and
@@ -12,8 +13,8 @@ cv2), then one device sweep field serves every goal (planning/sweep.py).
 
 Not ported yet (ROADMAP.md): the host A* backend
 (`explore.planner_backend: astar`), known-environment mode
-(init_known_env, cover_fov_2d), object planning, render_bev, save/load
-and the planning PNGs.
+(init_known_env, cover_fov_2d), object planning, render_bev and the
+planning PNGs.
 """
 from __future__ import annotations
 
@@ -479,3 +480,32 @@ class AstarPlanner:
         if defer_scores:
             return finish
         return finish()
+
+    # -- persistence --------------------------------------------------------
+    def save(self, path: str, **extra):
+        """The map and its frame as a compressed npz, with the JAX
+        package's keys; `extra` arrays ride along (the driver's step
+        stamp)."""
+        from ..utils.io import atomic_savez
+        atomic_savez(path, compressed=True, occ_map=_host(self.occ_map),
+                     map_center=self.map_center, grid_dim=self.grid_dim,
+                     frame_idx=self.frame_idx, cam_pos=self.cam_pos,
+                     cam_height=self.cam_height, **extra)
+
+    def load(self, path: str):
+        """Restore a map saved by this class or the JAX package's, onto
+        the planner's device; every cache of the old map is dropped."""
+        with np.load(path) as d:
+            self.occ_map = torch.as_tensor(np.asarray(d["occ_map"],
+                                                      np.float32),
+                                           device=self.device)
+            self.map_center = np.asarray(d["map_center"], np.float32)
+            self.grid_dim = np.asarray(d["grid_dim"])
+            self.frame_idx = int(d["frame_idx"])
+            self.cam_pos = np.asarray(d["cam_pos"])
+            self.cam_height = float(d["cam_height"])
+        self._map_center_dev = torch.as_tensor(self.map_center,
+                                               device=self.device)
+        self._occ_idx_cache = None
+        self._search_key = None
+        self._search = None

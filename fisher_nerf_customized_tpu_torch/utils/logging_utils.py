@@ -1,12 +1,53 @@
-"""Per-phase wall-clock accounting of an episode (the JAX package's
-utils/logging_utils.py StepTimer).  Host clock: a phase that only
-launches device work is charged its launch time, and the next phase
-that waits on the device is charged the wait."""
+"""Metrics channels of an episode, the JAX package's
+utils/logging_utils.py: MetricsLogger, a JSONL stream of per-step
+metrics (tensorboardX too when it is installed), and StepTimer, the
+per-phase wall-clock accounting.  StepTimer reads the host clock: a
+phase that only launches device work is charged its launch time, and the
+next phase that waits on the device is charged the wait."""
 from __future__ import annotations
 
+import json
+import os
 import time
 from collections import defaultdict
 from contextlib import contextmanager
+
+
+class MetricsLogger:
+    """Appends one JSON record per log call to
+    <log_dir>/<run_name>_metrics.jsonl: {"step", "t" (unix seconds), the
+    metrics as floats}; mirrors them to tensorboardX when it imports.
+    wandb is not ported (it needs the network)."""
+
+    def __init__(self, log_dir: str, run_name: str = "run",
+                 use_wandb: bool = False):
+        if use_wandb:
+            raise NotImplementedError(
+                "wandb logging (use_wandb) is not ported to the PyTorch "
+                "package (ROADMAP.md, queue 1)")
+        os.makedirs(log_dir, exist_ok=True)
+        self.path = os.path.join(log_dir, f"{run_name}_metrics.jsonl")
+        self._f = open(self.path, "a")
+        self._tb = None
+        try:
+            from tensorboardX import SummaryWriter   # optional
+            self._tb = SummaryWriter(log_dir)
+        except Exception:
+            pass
+
+    def log(self, step: int, **metrics):
+        rec = dict(step=int(step), t=time.time(), **{
+            k: float(v) for k, v in metrics.items()})
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+        if self._tb is not None:
+            for k, v in metrics.items():
+                self._tb.add_scalar(k, float(v), step)
+
+    def close(self):
+        self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 class StepTimer:

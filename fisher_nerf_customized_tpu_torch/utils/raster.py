@@ -16,7 +16,8 @@ here on numpy and scipy.ndimage, written to give cv2's cells exactly:
   distance_l1                distanceTransform(DIST_L1, 5), exact L1;
   thick_line_box             cv2.line(..., thickness > 1), LINE_8,
                              between points inside the grid;
-  fill_poly                  cv2.fillPoly for one contour, LINE_8.
+  fill_poly                  cv2.fillPoly for one contour, LINE_8;
+  write_png                  cv2.imwrite of an 8-bit color PNG.
 
 The drawing functions follow the integer and 16.16 fixed-point
 arithmetic of OpenCV's drawing.cpp (Bresenham lines, the convex fill of
@@ -415,3 +416,23 @@ def fill_poly(shape, points) -> np.ndarray:
                 spans.append((y, (a + half) >> _XY_SHIFT,
                               (b + half - 1) >> _XY_SHIFT))
     return _paint(shape, spans, pts)
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """An (H, W, 3) uint8 RGB image as an 8-bit RGB PNG (zlib level 6, no
+    filter): the pixels cv2.imwrite(path, img[..., ::-1]) stores."""
+    import struct
+    import zlib
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + row.tobytes() for row in img)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6))
+                + chunk(b"IEND", b""))

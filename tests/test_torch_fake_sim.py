@@ -57,3 +57,49 @@ def test_fake_sim_render_at_and_navigable():
     pts = rng.uniform(-6, 6, (200, 3))
     assert [env.is_navigable(p) for p in pts] == \
         [jenv.is_navigable(p) for p in pts]
+
+
+def test_box_scene_ground_truth_methods():
+    """sample_navigable, sample_surface_points, surface_area and
+    surface_distance: the JAX package's numbers from the same draws."""
+    for kind in ("default", "multi_room"):
+        t = getattr(tsim.BoxScene, kind)(seed=6)
+        j = getattr(jsim.BoxScene, kind)(seed=6)
+        np.testing.assert_array_equal(
+            t.sample_navigable(np.random.default_rng(1), 50),
+            j.sample_navigable(np.random.default_rng(1), 50))
+        np.testing.assert_array_equal(t.sample_surface_points(3000),
+                                      j.sample_surface_points(3000))
+        np.testing.assert_array_equal(
+            t.sample_surface_points(500, rng=np.random.default_rng(4)),
+            j.sample_surface_points(500, rng=np.random.default_rng(4)))
+        assert t.surface_area() == j.surface_area()
+        pts = np.random.default_rng(2).uniform(-7, 7, (400, 3))
+        np.testing.assert_array_equal(t.surface_distance(pts),
+                                      j.surface_distance(pts))
+
+
+def test_render_at_batch():
+    """One batched raycast equals render_at at each pose to the bit, and
+    the JAX package's render_at_batch as render_at does."""
+    from fisher_nerf_customized_tpu_torch.engine.eval import (
+        uniform_eval_poses)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        scene = tsim.BoxScene.multi_room(seed=3)
+        env = tsim.FakeSim(scene, TCamera(**CAMKW), device="cpu")
+        jenv = jsim.FakeSim(jsim.BoxScene.multi_room(seed=3),
+                            JCamera(**CAMKW))
+        poses = uniform_eval_poses(scene, 6, 1.25)
+        rgb, depth = env.render_at_batch(poses)
+        jrgb, jdepth = jenv.render_at_batch(poses)
+        assert rgb.shape == (6, 96, 96, 3) and depth.shape == (6, 96, 96)
+        for i, c2w in enumerate(poses):
+            one_rgb, one_depth = env.render_at(c2w)
+            assert torch.equal(rgb[i], one_rgb)
+            assert torch.equal(depth[i], one_depth)
+            assert frac_off(depth[i], jdepth[i]) <= 1e-3
+            assert frac_off(rgb[i], jrgb[i]) <= 1e-3
+    finally:
+        torch.set_num_threads(n)
