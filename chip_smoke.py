@@ -48,6 +48,34 @@ Phases, one line each:
                    tile rows of the render's binning whose K cut falls
                    inside a depth tie, at the coarse and the fine level
                    (reported only);
+  object_episode   the object branch's path through the entry point
+                   (cli.run_scene, as `python -m
+                   fisher_nerf_customized_tpu_torch --object_scene
+                   --dynamic_scene` runs it) at the same width on FakeSim
+                   fake_apartment_5, its object in view from step 0 and
+                   random-walking, 40 steps, no evaluation: masked object
+                   mapping events (K1, K2) and object planning events
+                   (Hutchinson through the probe-batched K2, 256
+                   candidates, criterion fisher).  Launch counts zeroed
+                   just before and read just after: K1, K2 and the
+                   probe-batched K2 must be launched.  It fails unless
+                   the object was detected and mapped (>= 3 events), an
+                   object planning event ran, the object map is not empty,
+                   its Gaussians' median xz distance to the object is
+                   under 1.2 m and the object curve is finite and never
+                   falls; prints the wall time, the object_tracking,
+                   obj_recon_metric and object planning times;
+  object_check     on the object episode's final object map: the
+                   Hutchinson diagonals of a pose chunk (8 keyframes, 8
+                   probes) and one pose's 11 x 11 blocks through the
+                   probe-batched K2 against K2's plain twin on the card
+                   (rtol 1e-4), each probe's rows against a lone K2 launch
+                   (to the bit), the probe-batched K2 against its twin and
+                   timed at that chunk with its live-pair bound; the
+                   object pose scores of 16 candidates under fisher, topt
+                   and dopt and the last object planning event's path
+                   scores on the card against the CPU's plain twins from
+                   the same probes (same argmax, Spearman >= 0.99);
   slice            the map-query path at the same width: 60 scripted steps
                    through GaussianSLAM.track_rgbd (6 mapping events of
                    densify + 60 Adam steps of 2 frames), then renders at 8
@@ -101,9 +129,14 @@ Phases, one line each:
                    first planning event fails, a later one is reported with
                    the two best path scores of the event before it;
   profile          device time by kernel over one more mapping event of
-                   the slice's map and over one planning query;
-  kernels          one line per kernel with its launches (the episode's)
-                   and max error; K3's 20-wide variant has its own line.
+                   the slice's map, over one planning query and over one
+                   more object planning event on the object episode's
+                   final state (its K2 launches are the probe-batched
+                   ones);
+  kernels          one line per kernel with its launches (the episode's;
+                   the probe-batched K2's from the object episode) and max
+                   error; K3's 20-wide variant and the probe-batched K2
+                   have their own lines.
 Then one JSON line of per-kernel numbers, the card's name and power limit
 (nvidia-smi), and the last line {"ok": true, "device": {...}}.  Any
 failure raises: the exit code is then nonzero and no result line prints.
@@ -158,6 +191,12 @@ EPISODE_STEPS = 100
 N_EVAL_POSES = 2000     # the entry point's default
 RESUME_STEPS = 10       # after the resume: one mapping event
 MIN_PLANNING_EVENTS = 2
+# the object episode: the spawned object (2.2 m from the start, in the
+# start room) is in view from step 0, and the episode runs two object
+# planning events
+OBJECT_SCENE = "fake_apartment_5"
+OBJECT_STEPS = 40
+MIN_OBJECT_MAPPING = 3
 
 
 T_START = time.perf_counter()
@@ -888,6 +927,310 @@ def check_planning_event(mapper, cap, report):
     return out
 
 
+def run_object_episode(log_dir):
+    """The port's entry point with --object_scene --dynamic_scene on
+    OBJECT_SCENE for OBJECT_STEPS steps, on the card (no evaluation):
+    (result, mapper, wall seconds, launches by kernel, record).  The
+    record holds the object mapping events' count and the arguments and
+    scores of the last object path-score call."""
+    import torch
+    from fisher_nerf_customized_tpu_torch import cli
+    from fisher_nerf_customized_tpu_torch.models import object_slam
+    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
+                                                      cuda_blend_bwd,
+                                                      cuda_fisher)
+    args = cli.build_parser().parse_args([
+        "--slam_config", os.path.join(HERE, "configs",
+                                      "mp3d_gaussian_FR_eccv.yaml"),
+        "--scenes_list", OBJECT_SCENE, "--max_steps", str(OBJECT_STEPS),
+        "--object_scene", "--dynamic_scene", "--eval_poses", "0",
+        "--log_dir", log_dir, "--name", "object"])
+    cfg = cli.load_config(args)
+    rec = dict(mapping_events=0)
+    cls = object_slam.GaussianObjectSLAM
+    event_fn, path_fn = cls._object_mapping_event, object_slam.object_path_scores
+
+    def counting(self, *a, **kw):
+        rec["mapping_events"] += 1
+        return event_fn(self, *a, **kw)
+
+    def recording(*a, **kw):
+        out = path_fn(*a, **kw)
+        rec.update(path_args=a, path_scores=out)
+        return out
+
+    cls._object_mapping_event = counting
+    object_slam.object_path_scores = recording
+    cuda_blend.launches = 0
+    cuda_blend_bwd.launches = 0
+    cuda_blend_bwd.launches_probes = 0
+    cuda_fisher.launches = 0
+    cuda_fisher.launches_full = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, mapper = cli.run_scene(args, cfg, OBJECT_SCENE)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        cls._object_mapping_event = event_fn
+        object_slam.object_path_scores = path_fn
+    launches = dict(blend=cuda_blend.launches,
+                    blend_bwd=cuda_blend_bwd.launches,
+                    blend_bwd_probes=cuda_blend_bwd.launches_probes,
+                    fisher=cuda_fisher.launches - cuda_fisher.launches_full,
+                    fisher_nf20=cuda_fisher.launches_full)
+    return result, mapper, wall_s, launches, rec
+
+
+def check_object_episode(result, mapper, wall_s, launches, rec):
+    """The object episode's checks: the object was detected and mapped
+    (at least MIN_OBJECT_MAPPING events), at least one object planning
+    event, n_active > 0, the object Gaussians' median xz distance to the
+    object under 1.2 m (the JAX package's tests/test_object_episode.py),
+    K1, K2 and the probe-batched K2 launched, the object curve finite and
+    never falling.  Returns the phase's row."""
+    obj_slam = mapper.obj_slam
+    timing = result["timing"]
+    events = [e for e in mapper.plan_log if e.get("object")]
+    curve = [s["completeness_ratio"] for s in mapper.object_metrics.steps]
+    row = dict(steps=result["steps"], wall_s=wall_s,
+               steps_per_s=result["steps"] / wall_s,
+               object_detected=obj_slam is not None,
+               object_mapping_events=rec["mapping_events"],
+               object_planning_events=len(events),
+               planning_events=result["planning_events"],
+               **{f"launches_{k}": v for k, v in launches.items()})
+    if obj_slam is None:
+        raise AssertionError("the object was not detected")
+    pts = obj_slam.gaussian_points
+    obj = mapper.sim.dynamic_object
+    d = np.linalg.norm(pts[:, [0, 2]] - obj.translation[[0, 2]], axis=1)
+    row.update(object_n_active=obj_slam.n_active,
+               object_keyframes=len(obj_slam.keyframes),
+               object_max_per_tile=obj_slam.settings.max_per_tile,
+               object_median_xz_m=float(np.median(d)) if len(d) else None,
+               object_curve=curve,
+               object_cloud_points=len(mapper.global_obj_pcl))
+    for name in ("object_tracking", "obj_recon_metric", "plan.object",
+                 "planning", "tracking_mapping"):
+        if name in timing:
+            row[f"{name.replace('.', '_')}_s"] = timing[name]["total_s"]
+    if "plan.object" in timing:
+        row["object_planning_event_ms_mean"] = timing["plan.object"]["mean_ms"]
+    if obj_slam.n_active <= 0:
+        raise AssertionError("the object map is empty")
+    if not np.median(d) < 1.2:
+        raise AssertionError(f"object Gaussians {np.median(d)} m from the "
+                             f"object (median xz)")
+    if rec["mapping_events"] < MIN_OBJECT_MAPPING:
+        raise AssertionError(f"{rec['mapping_events']} object mapping events")
+    if not events or "path_args" not in rec:
+        raise AssertionError("no object planning event")
+    if min(launches[k] for k in ("blend", "blend_bwd",
+                                 "blend_bwd_probes")) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    if not curve or not np.isfinite(curve).all() or \
+            any(b < a for a, b in zip(curve, curve[1:])):
+        raise AssertionError(f"object curve {curve}")
+    if not all(np.isfinite(e["scores"]).all() for e in events):
+        raise AssertionError("non-finite object path scores")
+    return row
+
+
+def check_object(mapper, rec, report):
+    """On the object episode's final object map: the Hutchinson
+    estimates through the probe-batched K2 against K2's plain twin on the
+    card, each probe's rows against a lone K2 launch, the pose scores
+    under fisher, topt and dopt and the last object planning event's path
+    scores against the CPU's plain twins from the same probes, and the
+    probe-batched K2 timed at 8 poses x 8 probes with its bound."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.models import object_slam
+    from fisher_nerf_customized_tpu_torch.models.gaussian_state import (
+        state_to_numpy)
+    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
+                                                      cuda_blend_bwd)
+    from fisher_nerf_customized_tpu_torch.ops import fisher as fisher_ops
+    from fisher_nerf_customized_tpu_torch.planning.candidates import (
+        generate_candidates_object)
+    obj = mapper.obj_slam
+    st, cam = obj.settings, obj.camera
+    params = obj.state.params()
+    out = {}
+
+    # the Hutchinson diagonals at the last keyframes (one pose chunk), the
+    # keyframes' own probes, through the kernel and through the twin
+    ids = list(range(len(obj.keyframes)))[-obj.obj_pose_chunk:]
+    w2cs = np.stack([obj.keyframes.w2cs[i] for i in ids])
+    zs = obj._kf_probes(ids, obj.hutch_probes)
+    got = obj._h11(w2cs, zs)
+    kernel_fn = fisher_ops.cuda_blend_bwd_probes
+
+    def twin(packed, pix_xy, gcol, g_t, nvalid, chunk, **_kw):
+        return cuda_blend_bwd.blend_bwd_probes_plain(packed, pix_xy, gcol,
+                                                     g_t, nvalid, chunk)
+    fisher_ops.cuda_blend_bwd_probes = twin
+    try:
+        ref = obj._h11(w2cs, zs)
+        w2c_t = obj._w2c(w2cs[-1])
+        blk_args = (cam, params["means3D"] @ w2c_t[:3, :3].T + w2c_t[:3, 3],
+                    torch.exp(params["log_scales"]), params["unnorm_rotations"],
+                    torch.sigmoid(params["logit_opacities"][:, 0]),
+                    params["rgb_colors"], zs[-1, :2])
+        blocks_ref = fisher_ops.block_jtj(*blk_args, active=obj._active(),
+                                          settings=st)["blocks"]
+    finally:
+        fisher_ops.cuda_blend_bwd_probes = kernel_fn
+    blocks = fisher_ops.block_jtj(*blk_args, active=obj._active(),
+                                  settings=st)["blocks"]
+    torch.cuda.synchronize()
+    # tolerance: rtol 1e-4 plus 1e-6 of the largest entry (the kernel's
+    # fixed-order sums against torch's; entries at the f32 floor)
+    for name, g, r in (("h11", got, ref), ("blocks", blocks, blocks_ref)):
+        err = (g - r).abs()
+        scale = float(r.abs().max())
+        bad = err > 1e-4 * r.abs() + 1e-6 * scale
+        out[f"{name}_max_abs_err"] = float(err.max())
+        out[f"{name}_max_value"] = scale
+        if scale <= 0 or bool(bad.any()):
+            raise AssertionError(f"Hutchinson {name}: {int(bad.sum())} "
+                                 f"entries off the twin's, max err "
+                                 f"{float(err.max())} of {scale}")
+
+    # the probe-batched K2 at this chunk: each probe's rows against a lone
+    # launch on that probe, to the bit; its time, bound and live pairs
+    means_cam = params["means3D"] @ obj._w2c(w2cs)[:, :3, :3].transpose(
+        1, 2) + obj._w2c(w2cs)[:, None, :3, 3]
+    x = fisher_ops.hutchinson_kernel_inputs(
+        cam, means_cam, torch.exp(params["log_scales"]),
+        params["unnorm_rotations"],
+        torch.sigmoid(params["logit_opacities"][:, 0]), params["rgb_colors"],
+        zs, active=obj._active(), settings=st)
+    k1 = dict(color=x["color"], t_final=x["t_final"], walked=x["walked"])
+    args = (x["packed"], x["pix_xy"], x["gcol"], x["g_t"], x["nvalid"],
+            st.chunk)
+    probes_out = cuda_blend_bwd.cuda_blend_bwd_probes(*args, **k1)
+    for b in range(x["gcol"].shape[0]):
+        lone = cuda_blend_bwd.cuda_blend_bwd(
+            x["packed"], x["pix_xy"], x["gcol"][b], x["g_t"][b], x["nvalid"],
+            st.chunk, **k1)
+        if not torch.equal(probes_out[b], lone):
+            raise AssertionError(f"probe {b}: rows differ from a lone K2 "
+                                 f"launch by {float((probes_out[b] - lone).abs().max())}")
+    plain = cuda_blend_bwd.blend_bwd_probes_plain(*args)
+    torch.cuda.synchronize()
+    err = (probes_out - plain).abs()
+    col_max = plain.abs().reshape(-1, plain.shape[-1]).amax(dim=0)
+    # tolerance as the kernel_blend_bwd phase's: rtol 1e-3 plus 1e-4 of the
+    # column's largest value
+    if bool((err > 1e-3 * plain.abs() + 1e-4 * col_max).any()):
+        raise AssertionError(f"probe-batched K2 off its twin: max err "
+                             f"{float(err.max())}")
+    del plain
+    launch = functools.partial(cuda_blend_bwd.cuda_blend_bwd_probes, *args,
+                               **k1)
+    n_probes = x["gcol"].shape[0]
+    ms = kernel_device_ms(launch, "blend_bwd_kernel", 20)
+    plain_ms = cuda_ms(lambda: cuda_blend_bwd.blend_bwd_probes_plain(*args), 1)
+    lone_ms = kernel_device_ms(functools.partial(
+        cuda_blend_bwd.cuda_blend_bwd, x["packed"], x["pix_xy"], x["gcol"][0],
+        x["g_t"][0], x["nvalid"], st.chunk, **k1), "blend_bwd_kernel", 20)
+    n_tiles, k, f = x["packed"].shape
+    p = x["pix_xy"].shape[-1]
+    n_ch = f - cuda_blend.BASE_F
+    pairs = pair_counts(x["packed"], x["pix_xy"], x["nvalid"], x["walked"],
+                        cuda_blend_bwd.PIXELS_PER_WARP)
+    rows = int(torch.minimum(x["walked"].long(), x["nvalid"].long()).sum())
+    n_bytes = (rows * f + n_tiles * 2 * p + n_tiles
+               + n_probes * n_tiles * p * (n_ch + 1)        # gcol, g_t
+               + n_tiles * p * (n_ch + 1) + n_tiles         # K1's outputs
+               + n_probes * n_tiles * k * (6 + n_ch)) * 4
+    ops = n_probes * pairs["pairs_live"] * (K2_FLOPS_PER_LIVE_PAIR[0]
+                                            + K2_FLOPS_PER_LIVE_PAIR[1] * n_ch)
+    bms, bby = bound_ms(n_bytes, ops)
+    out.update(poses=len(ids), probes=n_probes, B=len(ids) * n_probes,
+               T=n_tiles, K=k, P=p, C=n_ch, rows_needed=rows,
+               max_abs_err=float(err.max()), max_value=float(col_max.max()),
+               ms=ms, plain_ms=plain_ms, lone_probe_ms=lone_ms, bound_ms=bms,
+               bound_by=bby, bitwise_per_probe=True, **pairs)
+    del x, args, k1, probes_out, launch
+
+    # pose scores: the card's against the CPU twins', the same probes (the
+    # card's draws, copied) and the same H_train
+    cpu = object_slam.GaussianObjectSLAM(obj.cfg, eval_dir=obj.eval_dir,
+                                         start_frame_idx=obj.start_frame_idx,
+                                         device="cpu")
+    cpu.set_from_numpy(state_to_numpy(obj.state))
+    cpu.settings = obj.settings
+    draws = {}
+    card_draw = obj.probe_draw
+
+    def caching(seed, n):
+        z = card_draw(seed, n)
+        draws[(seed, n)] = z
+        return z
+    obj.probe_draw = caching
+    cpu.probe_draw = lambda seed, n: draws[(seed, n)].cpu()
+    h_train = {n: obj.compute_H_train_obj(n_probes=n) for n in (2, obj.hutch_probes)}
+    cpu.compute_H_train_obj = lambda n_probes=None: h_train[
+        int(n_probes or cpu.hutch_probes)].cpu()
+    cpu.keyframes = obj.keyframes
+    anchors = obj.gaussian_points[:, [0, 2]].mean(axis=0, keepdims=True)
+    ex = obj.cfg.explore_object
+    cands = generate_candidates_object(
+        anchors, 16, float(ex.sample_range), float(ex.min_range),
+        float(mapper.planner.cam_height), np.random.default_rng(0))
+
+    def spearman(a, b):
+        rank = lambda v: np.argsort(np.argsort(v))
+        return float(np.corrcoef(rank(a), rank(b))[0, 1])
+    try:
+        for crit in ("fisher", "topt", "dopt"):
+            cpu._draws = obj._draws
+            if crit == "fisher":
+                s_card = obj.pose_eval(cands)[0]
+                s_cpu = cpu.pose_eval(cands)[0]
+            else:
+                s_card = obj.pose_eval_popgs(cands, criterion=crit, K=2)[0]
+                s_cpu = cpu.pose_eval_popgs(cands, criterion=crit, K=2)[0]
+            s_card, s_cpu = s_card.cpu().numpy(), s_cpu.numpy()
+            rho = spearman(s_card, s_cpu)
+            rel = np.abs(s_card - s_cpu) / np.abs(s_cpu)
+            out[f"pose_{crit}_spearman"] = rho
+            out[f"pose_{crit}_rel_err_max"] = float(rel.max())
+            out[f"pose_{crit}_argmax"] = int(s_card.argmax())
+            if rho < 0.99 or int(s_card.argmax()) != int(s_cpu.argmax()):
+                raise AssertionError(f"object pose scores ({crit}) off the "
+                                     f"CPU twins: spearman {rho}, argmax "
+                                     f"{int(s_card.argmax())} vs "
+                                     f"{int(s_cpu.argmax())}")
+    finally:
+        obj.probe_draw = card_draw
+
+    # the last object planning event's path scores, on the CPU twins
+    a = rec["path_args"]
+    probes = a[7]
+    to_cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v  # noqa
+    cpu_args = ([{k: v.cpu() for k, v in a[0].items()}]
+                + [to_cpu(v) for v in a[1:7]]
+                + [lambda s: probes(s).cpu()] + list(a[8:]))
+    path_cpu = object_slam.object_path_scores(*cpu_args).numpy()
+    path_card = rec["path_scores"].cpu().numpy()
+    valid = np.isfinite(path_cpu)
+    out.update(path_n=int(valid.sum()),
+               path_argmax=int(np.argmax(path_card)),
+               path_argmax_cpu=int(np.argmax(path_cpu)),
+               path_rel_err_max=float(np.max(np.abs(
+                   path_card[valid] - path_cpu[valid])
+                   / np.abs(path_cpu[valid]))))
+    if int(np.argmax(path_card)) != int(np.argmax(path_cpu)):
+        raise AssertionError(f"object path scores: argmax "
+                             f"{np.argmax(path_card)} vs the CPU's "
+                             f"{np.argmax(path_cpu)}")
+    return out
+
+
 def device_ms_and_launches(fn):
     """Device time (ms, the profiler's kernel rows) and kernel launches of
     one call of fn, after a warm-up call."""
@@ -1034,6 +1377,20 @@ def main(argv=None):
         phase("resume", **fmt(report["resume"]))
         report["tie_cut"] = count_cut_ties(mapper)
         phase("tie_cut", **fmt(report["tie_cut"]))
+
+        # ---- the object branch: its episode through the entry point, then
+        # the checks on its final object map
+        o_result, o_mapper, o_wall, o_launches, o_rec = run_object_episode(
+            os.path.join(HERE, "experiments", "chip_smoke"))
+        o_row = check_object_episode(o_result, o_mapper, o_wall, o_launches,
+                                     o_rec)
+        report["object_episode"] = dict(o_row, timing=o_result["timing"])
+        phase("object_episode", **fmt({k: v for k, v in o_row.items()
+                                       if not isinstance(v, list)}))
+        print(f"  object curve: {o_row['object_curve']}")
+        report["object_check"] = check_object(o_mapper, o_rec, report)
+        phase("object_check", **fmt(report["object_check"]))
+        del o_rec
 
     # ---- slice (the map-query path)
     if not opts.kernels_only:
@@ -1505,10 +1862,29 @@ def main(argv=None):
         for a in EXTRA_ACTIONS[:int(cfg.map_every)]])
     slam._h_train_cache = None
     profiled("pose_eval", lambda: slam.pose_eval(cands))
+    # one more object planning event on the object episode's final state
+    from fisher_nerf_customized_tpu_torch.engine.object_planning import (
+        plan_best_object_path)
+    om = o_mapper
+    om.planner._search_key = None                  # a fresh sweep field
+    profiled("object_planning_event", lambda: plan_best_object_path(
+        om.obj_slam, om.slam, om.planner, np.asarray(om.sim.c2w, np.float64),
+        1, om.slam.frame_idx + 1, om.cfg, om.forward_step, om.turn_angle,
+        om.queue_size, criterion=om.criterion))
+
+    oc = report["object_check"]
+    entries["blend_bwd_probes"] = dict(
+        name="blend_bwd_probes", route="cuda",
+        source="fisher_nerf_customized_tpu_torch/csrc/blend_bwd.cu",
+        replaces="fisher_nerf_customized_tpu/ops/pallas_blend_bwd.py:63",
+        max_abs_err=oc["max_abs_err"], ms=oc["ms"], plain_ms=oc["plain_ms"],
+        bound_ms=oc["bound_ms"], bound_by=oc["bound_by"], library_ms=None)
 
     # ---- kernels ----------------------------------------------------------
+    launches_of = dict(ep_launches,
+                       blend_bwd_probes=o_launches["blend_bwd_probes"])
     for name, e in entries.items():
-        e["launches"] = ep_launches[name]
+        e["launches"] = launches_of[name]
         phase("kernels", name=name, launches=e["launches"],
               max_abs_err=f"{e['max_abs_err']:.3g}", ms=f"{e['ms']:.4g}")
     report["kernels"] = list(entries.values())

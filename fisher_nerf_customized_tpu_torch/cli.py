@@ -18,9 +18,14 @@ episode_state.npz), pointcloud/global_pcl_<steps>.ply,
 recon_metrics.yaml, metrics_curve.yaml, eval.json,
 <policy>_results.txt, eval_psnr_map.png and result.json.  `--resume
 --checkpoint <params file>` continues an episode from its checkpoint.
+`--object_scene` spawns a 0.4 x 1.2 x 0.4 m SimObject at (0, 1.8), or at
+a navigable point drawn from the scene's seed where that is not
+navigable, and runs the object branch (cfg.criterion: fisher, topt or
+dopt); `--dynamic_scene` makes it random-walk; the object's curve goes
+to object_metrics_curve.yaml.
 Not ported yet (ROADMAP.md), and so raising NotImplementedError: `--sim
-habitat`, `--object_scene`, `--dynamic_scene`, `--known_env`,
-`--lpips_weights`, `--dino_gate`, `--dino_weights` and `--ensemble_dir`.
+habitat`, `--known_env`, `--lpips_weights`, `--dino_gate`,
+`--dino_weights` and `--ensemble_dir`.
 """
 from __future__ import annotations
 
@@ -83,8 +88,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _check_ported(args):
     unported = [(args.sim != "fake", f"--sim {args.sim}"),
-                (args.object_scene, "--object_scene"),
-                (args.dynamic_scene, "--dynamic_scene"),
                 (args.known_env, "--known_env"),
                 (args.lpips_weights is not None, "--lpips_weights"),
                 (args.dino_gate or args.dino_weights is not None,
@@ -152,8 +155,10 @@ def make_sim(args, cfg, scene_id: str):
     """FakeSim and its BoxScene for a scene id: `fake_apartment*` ids the
     multi-room generator (`fake_apartment<X>x<Z>` sets the grid of
     rooms, 3x3 by default), any other id the single-room default; the
-    scene's seed is the crc32 of the id (stable across processes)."""
-    from .envs.fake_sim import BoxScene, FakeSim
+    scene's seed is the crc32 of the id (stable across processes).  With
+    --object_scene, the scene holds a SimObject (see the module
+    docstring), moved by the episode with --dynamic_scene."""
+    from .envs.fake_sim import BoxScene, FakeSim, SimObject
     from .ops.camera import Camera
     calib = cfg.SLAM.Dataset.Calibration
     cam = Camera(fx=float(calib.fx), fy=float(calib.fy),
@@ -166,9 +171,17 @@ def make_sim(args, cfg, scene_id: str):
         scene = BoxScene.multi_room(seed=seed, rooms_x=rx, rooms_z=rz)
     else:
         scene = BoxScene.default(seed=seed)
+    obj = None
+    if args.object_scene:
+        start = (0.0, 1.8)
+        if not scene.is_navigable((start[0], 0.0, start[1])):
+            start = tuple(scene.sample_navigable(
+                np.random.default_rng(seed), 1)[0])
+        obj = SimObject(scene, semantic_id=100, size=(0.4, 1.2, 0.4),
+                        start_xz=start, seed=seed)
     sim = FakeSim(scene, cam, forward_step=float(cfg.forward_step_size),
                   turn_angle=float(cfg.turn_angle), seed=args.seed,
-                  device=args.device)
+                  dynamic_object=obj, device=args.device)
     return sim, scene
 
 
@@ -183,6 +196,8 @@ def run_scene(args, cfg, scene_id: str):
     eval_dir = os.path.join(cfg.workdir, cfg.run_name, scene_id)
     mapper = ActiveMapper(cfg, sim, scene=scene, eval_dir=eval_dir,
                           seed=args.seed, scene_id=scene_id,
+                          object_scene=args.object_scene,
+                          dynamic_scene=args.dynamic_scene,
                           device=args.device)
     if args.resume and args.checkpoint:
         mapper.resume(args.checkpoint)

@@ -56,6 +56,15 @@
 //     the warp's pixels.  A skipped pair has alpha = 0 by the kernel's own
 //     test and contributes nothing, so the results are unchanged.
 // The per-Gaussian scatter-add of the rows stays outside, in torch.
+//
+// The probe-batched variant (fnc_blend_bwd_probes) takes B cotangents of
+// one forward, gcol (B, T, P, C) and g_t (B, T, P), and writes
+// (B, T, K, 6+C): the Hutchinson estimators' B probes through one VJP,
+// which the JAX package runs as jax.vmap over the Pallas VJP.  It is the
+// same kernel with the probe on gridDim.y: each block walks its tile for
+// one probe, so a probe's rows are those of a lone launch on that probe,
+// to the bit, and the tile's packed rows, read once per probe, come from
+// L2 after the first.
 #include <cooperative_groups.h>
 
 #include "blend_common.cuh"
@@ -119,8 +128,12 @@ blend_bwd_kernel(const float* __restrict__ packed,
                  const float* __restrict__ color,
                  const float* __restrict__ t_fin,
                  const int* __restrict__ walked,
-                 float* __restrict__ out, int K, int P) {
+                 float* __restrict__ out, int n_tiles, int K, int P) {
   constexpr int F = kBaseF + C;
+  // the probe (gridDim.y): its cotangents and its output rows
+  gcol += (size_t)blockIdx.y * n_tiles * P * C;
+  g_t += (size_t)blockIdx.y * n_tiles * P;
+  out += (size_t)blockIdx.y * n_tiles * K * (6 + C);
   constexpr int FP = padded_stride(F);
   constexpr int G = 6 + C;
   static_assert(G <= 16, "the reduce-scatter carries 16 sums");
@@ -266,11 +279,11 @@ template <int C>
 cudaError_t launch(const float* packed, const float* pix_xy,
                    const float* gcol, const float* g_t, const int* nvalid,
                    const float* color, const float* t_fin, const int* walked,
-                   float* out, int T, int K, int P, int splits,
+                   float* out, int B, int T, int K, int P, int splits,
                    cudaStream_t stream) {
   const int threads = 2 * P / splits;       // two lanes per pixel
   if (splits < 1 || splits > kMaxSplits || threads * splits != 2 * P ||
-      threads % 32 != 0 || threads > kMaxThreads)
+      threads % 32 != 0 || threads > kMaxThreads || B < 1 || B > 65535)
     return cudaErrorInvalidValue;
   const int warps = threads / 32;
   const size_t smem = sizeof(float) *
@@ -283,7 +296,7 @@ cudaError_t launch(const float* packed, const float* pix_xy,
     if (e != cudaSuccess) return e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(T * splits);
+  cfg.gridDim = dim3(T * splits, B);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -296,7 +309,7 @@ cudaError_t launch(const float* packed, const float* pix_xy,
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, packed, pix_xy, gcol,
                                            g_t, nvalid, color, t_fin, walked,
-                                           out, K, P);
+                                           out, T, K, P);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -305,21 +318,42 @@ cudaError_t launch(const float* packed, const float* pix_xy,
 
 // splits: blocks (one cluster) per tile, 1 to 8, each of 2 P / splits
 // threads, a multiple of 32 and at most 256.
-extern "C" int fnc_blend_bwd(const float* packed, const float* pix_xy,
-                             const float* gcol, const float* g_t,
-                             const int* nvalid, const float* color,
-                             const float* t_fin, const int* walked,
-                             float* out, int T, int K, int C, int P,
-                             int splits, void* stream) {
+static int dispatch(const float* packed, const float* pix_xy,
+                    const float* gcol, const float* g_t, const int* nvalid,
+                    const float* color, const float* t_fin, const int* walked,
+                    float* out, int B, int T, int K, int C, int P, int splits,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FNC_BWD_CASE(CC)                                                  \
   case CC:                                                                \
     return launch<CC>(packed, pix_xy, gcol, g_t, nvalid, color, t_fin,    \
-                      walked, out, T, K, P, splits, s);
+                      walked, out, B, T, K, P, splits, s);
   switch (C) {
     FNC_BWD_CASE(1) FNC_BWD_CASE(2) FNC_BWD_CASE(3) FNC_BWD_CASE(4)
     FNC_BWD_CASE(5) FNC_BWD_CASE(6) FNC_BWD_CASE(7) FNC_BWD_CASE(8)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FNC_BWD_CASE
+}
+
+extern "C" int fnc_blend_bwd(const float* packed, const float* pix_xy,
+                             const float* gcol, const float* g_t,
+                             const int* nvalid, const float* color,
+                             const float* t_fin, const int* walked,
+                             float* out, int T, int K, int C, int P,
+                             int splits, void* stream) {
+  return dispatch(packed, pix_xy, gcol, g_t, nvalid, color, t_fin, walked,
+                  out, 1, T, K, C, P, splits, stream);
+}
+
+// The probe-batched variant: B cotangents (B, T, P, C) and (B, T, P) of
+// one forward, output (B, T, K, 6+C); B at most 65535.
+extern "C" int fnc_blend_bwd_probes(const float* packed, const float* pix_xy,
+                                    const float* gcol, const float* g_t,
+                                    const int* nvalid, const float* color,
+                                    const float* t_fin, const int* walked,
+                                    float* out, int B, int T, int K, int C,
+                                    int P, int splits, void* stream) {
+  return dispatch(packed, pix_xy, gcol, g_t, nvalid, color, t_fin, walked,
+                  out, B, T, K, C, P, splits, stream);
 }

@@ -28,7 +28,23 @@ Policies: 'gaussians_based' (FisherRF), 'frontier' (the same planning
 with uniform scores, first valid path) and 'random_walk'; with
 `traj_actions` the episode replays them (the 'traj_reader' fixture).  As
 in the JAX package, any other name plans as FisherRF does, without the
-H_train prewarm.  Not ported yet (ROADMAP.md): the object branch, UPEN,
+H_train prewarm.
+
+The object branch (`object_scene`, on a FakeSim with a SimObject): each
+step the object mask comes from the semantic channel; while it covers
+more than 20 pixels, the masked depth is accumulated in the object's
+canonical frame (`global_obj_pcl`) and a GaussianObjectSLAM tracks and
+maps the object (models/object_slam.py), and while an object is tracked,
+planning goes through engine/object_planning.py (criterion cfg.criterion:
+`fisher`, `topt` or `dopt`), the scene planner taking over where it
+finds no path.  With `dynamic_scene` the object random-walks each step.
+Every 25 steps the object reconstruction curve (completeness of the
+canonical cloud against the object's surface, 1 cm) is recorded.
+Checkpoints carry the object cloud, the object's cells of the map view
+and object_metrics_curve.yaml, as the JAX package's do (not the object
+SLAM, which, as there, starts anew at the next detection).
+
+Not ported yet (ROADMAP.md): the known-environment novelty mask, UPEN,
 the DINO gate, the cluster manager, pipelined planning,
 `explore.prune_invisible` and the navigation images; a config that turns
 one of them on raises NotImplementedError.
@@ -45,10 +61,10 @@ import torch
 
 from ..models.slam import GaussianSLAM
 from ..planning.planner import (AstarPlanner, LocalizationError,
-                                NoFrontierError)
+                                NoFrontierError, _host)
 from ..utils.io import atomic_pickle, atomic_savez, valid_npz
 from ..utils.logging_utils import MetricsLogger, StepTimer
-from ..utils.pointcloud import GlobalPointCloud
+from ..utils.pointcloud import GlobalPointCloud, backproject_depth
 from .actions import action_planning, rollout_path_poses
 from .eval import (IncrementalReconMetric, MetricsRecorder,
                    accuracy_comp_ratio_from_pcl, eval_navigation)
@@ -92,6 +108,7 @@ class ActiveMapper:
     def __init__(self, cfg, sim, scene=None, policy_name: str | None = None,
                  eval_dir: str | None = None, seed: int = 0,
                  traj_actions=None, scene_id: str | None = None,
+                 object_scene: bool = False, dynamic_scene: bool = False,
                  device="cuda"):
         self.cfg = cfg
         self.sim = sim
@@ -102,6 +119,16 @@ class ActiveMapper:
         _check_ported(cfg, self.policy_name)
         self.eval_dir = eval_dir or os.path.join(cfg.workdir, cfg.run_name)
         os.makedirs(self.eval_dir, exist_ok=True)
+
+        self.device = device
+        self.object_scene = bool(object_scene)
+        self.dynamic_scene = bool(dynamic_scene)
+        self.obj_slam = None
+        self.object_tracking = False
+        self.criterion = str(cfg.criterion)
+        self.object_metrics = MetricsRecorder(f"{cfg.criterion}_OA",
+                                              self.scene_id)
+        self._obj_pcl_parts: list[np.ndarray] = []
 
         self.slam = GaussianSLAM(cfg, eval_dir=self.eval_dir, device=device)
         self.planner = AstarPlanner(cfg, seed=seed, device=device)
@@ -165,6 +192,95 @@ class ActiveMapper:
                                              self.planner.map_center)
             self.habvis = MapVisualizer(gt_free, self.planner.cell_size * 2,
                                         self.planner.map_center)
+
+    # -- object branch ------------------------------------------------------
+    def _object_mask(self, obs):
+        """The object's pixels, (H, W) bool numpy: the spawned object's
+        semantic id (a real semantic sensor labels every pixel with an
+        instance id), else any nonzero label; None off the object branch
+        or without a semantic channel."""
+        if not self.object_scene or "semantic" not in obs:
+            return None
+        sem = np.asarray(obs["semantic"])
+        obj = getattr(self.sim, "dynamic_object", None)
+        if obj is not None and getattr(obj, "semantic_id", None) is not None:
+            return sem == int(obj.semantic_id)
+        return sem > 0
+
+    def _accumulate_object_pcl(self, obs, mask):
+        """Back-project the masked depth and keep it in the object's
+        canonical frame (through inv(object_pose)), so that a moving
+        object's observations stay registered.  At most 4096 points per
+        frame; past 400 000 in all, the cloud is deduplicated on a 0.5 cm
+        voxel grid (half the 1 cm metric scale, so coverage is kept),
+        and randomly cut to 300 000 only if still above."""
+        obj = getattr(self.sim, "dynamic_object", None)
+        if obj is None:
+            return
+        depth = _host(obs["depth"])
+        d_masked = np.where(mask, depth, 0.0).astype(np.float32)
+        pts_w = backproject_depth(d_masked, self.sim.intrinsics, obs["c2w"])
+        if len(pts_w) == 0:
+            return
+        T_wo = obj.object_pose()
+        pts_obj = (pts_w - T_wo[:3, 3]) @ T_wo[:3, :3]
+        if len(pts_obj) > 4096:
+            idx = self.rng.choice(len(pts_obj), 4096, replace=False)
+            pts_obj = pts_obj[idx]
+        self._obj_pcl_parts.append(pts_obj.astype(np.float32))
+        if sum(len(p) for p in self._obj_pcl_parts) > 400_000:
+            merged = np.concatenate(self._obj_pcl_parts)
+            q = np.round(merged / 0.005).astype(np.int64)
+            _, first = np.unique(q, axis=0, return_index=True)
+            merged = merged[first]
+            if len(merged) > 400_000:
+                keep = self.rng.choice(len(merged), 300_000, replace=False)
+                merged = merged[keep]
+            self._obj_pcl_parts = [merged]
+
+    @property
+    def global_obj_pcl(self) -> np.ndarray:
+        """The accumulated object cloud (M, 3) in the canonical frame."""
+        if not self._obj_pcl_parts:
+            return np.zeros((0, 3), np.float32)
+        return np.concatenate(self._obj_pcl_parts)
+
+    def _object_step(self, obs, mask, t):
+        """Accumulate the object cloud; start the object SLAM at the first
+        detection (then queue the turns that center the object) or track
+        and map the object."""
+        from ..models.object_slam import GaussianObjectSLAM
+        from .object_planning import init_object_policy
+        w2c = np.linalg.inv(obs["c2w"])
+        self._accumulate_object_pcl(obs, mask)
+        if self.obj_slam is None:
+            self.obj_slam = GaussianObjectSLAM(
+                self.cfg, eval_dir=self.eval_dir, start_frame_idx=t,
+                device=self.device)
+            self.obj_slam.init(obs["rgb"], obs["depth"], w2c, mask)
+            self.queue.clear()
+            self.queue.extend(init_object_policy(mask, self.turn_angle,
+                                                 mask.shape[1]))
+            self.object_tracking = True
+            return
+        self.obj_slam.track_rgbd(obs["rgb"], obs["depth"], gt_w2c=w2c,
+                                 obj_mask_2d=mask, step=t)
+        self.object_tracking = True
+
+    def record_object_metrics(self, t, gt_object_points,
+                              dist_thresh: float = 0.01):
+        """Record the object reconstruction at step t: the canonical-frame
+        cloud against the object's surface points in its canonical frame
+        (or, before any cloud, the object Gaussians' means); None before
+        the object is seen."""
+        est = self.global_obj_pcl
+        if len(est) == 0:
+            if self.obj_slam is None or self.obj_slam.n_active == 0:
+                return None
+            est = self.obj_slam.gaussian_points
+        m = accuracy_comp_ratio_from_pcl(est, gt_object_points, dist_thresh)
+        self.object_metrics.record(t, **m)
+        return m
 
     # -- planning -----------------------------------------------------------
     def plan_best_path(self, current_agent_pose: np.ndarray, expansion: int,
@@ -269,6 +385,22 @@ class ActiveMapper:
             if self.policy_name == "random_walk":
                 self.queue.extend(self._random_walk_actions())
                 return
+            if self.object_tracking and self.obj_slam is not None:
+                # the object-observing path takes over while an object is
+                # tracked
+                from .object_planning import plan_best_object_path
+                with self.timer.phase("plan.object"):
+                    actions, _p, scores = plan_best_object_path(
+                        self.obj_slam, self.slam, self.planner, c2w,
+                        expansion, t, self.cfg, self.forward_step,
+                        self.turn_angle, self.queue_size,
+                        criterion=self.criterion)
+                if actions:
+                    self.plan_log.append(dict(
+                        t=t, scores=scores, best=int(np.argmax(scores)),
+                        actions=list(actions), object=True))
+                    self.queue.extend(actions)
+                    return
             actions, _path = self.plan_best_path(c2w, expansion, t)
             if actions:
                 self.queue.extend(actions)
@@ -302,6 +434,11 @@ class ActiveMapper:
         done_reason = "max_steps"
         while t < self.max_steps:
             c2w = obs["c2w"]
+            obj = getattr(self.sim, "dynamic_object", None)
+            if self.dynamic_scene and obj is not None:
+                obj.moving_randomly()
+                obs = self.sim.get_observations()
+            obj_mask = self._object_mask(obs)
             # planning runs this step iff the queue is empty: take the
             # Gaussian means before this step's mapping event
             if (not self.queue and self.traj_actions is None
@@ -310,6 +447,9 @@ class ActiveMapper:
             with self.timer.phase("tracking_mapping"):
                 self.slam.track_rgbd(obs["rgb"], obs["depth"],
                                      gt_w2c=np.linalg.inv(c2w))
+            if obj_mask is not None and obj_mask.sum() > 20:
+                with self.timer.phase("object_tracking"):
+                    self._object_step(obs, obj_mask, t)
             with self.timer.phase("occupancy"):
                 self.planner.update_occ_map(obs["depth"], c2w, t)
             with self.timer.phase("pcl"):
@@ -381,9 +521,17 @@ class ActiveMapper:
                     m = self._recon_update(recon_gt_points)
                     self.metrics.record(t, **m)
                     self.mlog.log(t, **m, n_gaussians=self.slam.n_active)
+            if self.obj_slam is not None and t % 25 == 0 and obj is not None:
+                # the object curve, against 20 000 surface samples (at the
+                # 1 cm protocol a sparser cloud is sampling-limited)
+                with self.timer.phase("obj_recon_metric"):
+                    self.record_object_metrics(
+                        t, obj.sample_surface_points(20000, frame="object"))
             if self.habvis is not None:
                 with self.timer.phase("habvis"):
                     self.habvis.update_fow_sim(obs["c2w"])
+                if self.dynamic_scene and obj is not None:
+                    self.habvis.update_object(obj.translation)
             # the checkpoint cadence is offset to the middle of the mapping
             # window, where the device is idle and the state pull is a copy
             ck_off = (int(self.cfg.map_every) // 2) % self.checkpoint_interval
@@ -451,6 +599,8 @@ class ActiveMapper:
         if self.metrics.steps:
             self.metrics.dump(os.path.join(self.eval_dir,
                                            "metrics_curve.yaml"))
+        if self.object_metrics.steps:
+            self.object_metrics.dump(self._path("object_metrics_curve.yaml"))
         return result
 
     def _recon_update(self, recon_gt_points) -> dict:
@@ -489,6 +639,8 @@ class ActiveMapper:
         self.planner.save(self._path("astar.npz"), ckpt_t=int(t))
         self.global_pcl.save(self._path("global_pcl.npz"), ckpt_t=int(t))
         self.metrics.dump(self._path("metrics_curve.yaml"))
+        if self.object_metrics.steps:
+            self.object_metrics.dump(self._path("object_metrics_curve.yaml"))
         record = dict(
             t=int(t), stuck_count=int(self.stuck_count),
             stuck_total=int(self.stuck_total),
@@ -497,6 +649,7 @@ class ActiveMapper:
                      else np.asarray(sim_c2w, np.float32)[None]),
             queue=np.asarray(list(self.queue), np.int64),
             pcl_1000_saved=bool(self._pcl_1000_saved),
+            obj_pcl=self.global_obj_pcl,
             metrics_curve=json.dumps(dict(header=self.metrics.header,
                                           steps=self.metrics.steps)),
             **{f"slam_{k}": v for k, v in self.slam.run_state().items()})
@@ -570,6 +723,8 @@ class ActiveMapper:
             self.metrics.steps = [dict(s) for s in curve["steps"]]
         elif os.path.exists(self._path("metrics_curve.yaml")):
             self.metrics.load(self._path("metrics_curve.yaml"))
+        if os.path.exists(self._path("object_metrics_curve.yaml")):
+            self.object_metrics.load(self._path("object_metrics_curve.yaml"))
         if ep is not None:
             self.stuck_count = int(ep["stuck_count"])
             self.stuck_total = int(ep["stuck_total"]) \
@@ -578,6 +733,8 @@ class ActiveMapper:
                 self._inc_recon_saved = dict(d_gt_min=ep["inc_recon_d_gt_min"],
                                              acc=ep["inc_recon_acc"])
             self.queue = deque(int(a) for a in ep["queue"])
+            if "obj_pcl" in ep and len(ep["obj_pcl"]):
+                self._obj_pcl_parts = [np.asarray(ep["obj_pcl"], np.float32)]
             self._pcl_1000_saved = bool(ep.get("pcl_1000_saved", False))
             if "slam_max_per_tile" in ep:
                 self.slam.load_run_state({

@@ -6,8 +6,9 @@ aligned with the planner's map and a fog-of-war mask that each step's
 field-of-view wedge reveals; coverage_2d is the revealed share of the
 navigable cells.  The wedge is drawn by utils/raster.fill_poly, cv2's
 fillPoly without cv2.  state_dict/load_state_dict carry the mask and the
-agent's cells through a checkpoint.  Drawing the map and the PNG export
-are not ported yet (ROADMAP.md).
+agent's cells through a checkpoint, and update_object records a dynamic
+object's cells.  Drawing the map and the PNG export are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -51,6 +52,10 @@ class MapVisualizer:
                         int(cz + r_cells * np.cos(a))))
         wedge = fill_poly(self.gt_free.shape, np.asarray(pts, np.int32))
         self.fow_mask |= (wedge > 0) & self.gt_free
+
+    def update_object(self, pos_xz):
+        """Record the dynamic object's cell ((x, ..., z) world position)."""
+        self.obj_traj.append(self._to_cell(pos_xz[0], pos_xz[-1]))
 
     def coverage_2d(self) -> float:
         """% of the navigable cells revealed."""

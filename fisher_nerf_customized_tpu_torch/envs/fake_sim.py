@@ -4,7 +4,9 @@
 `FakeSim` renders ground-truth RGB-D by per-pixel AABB raycasting on the
 device and steps the discrete action space (1 fwd / 2 left / 3 right)
 with collision checks, so the SLAM object can be driven with no scene
-data.  Observations stay on the device as torch tensors.
+data.  Observations stay on the device as torch tensors.  A `SimObject`
+(a box that can random-walk, the object branch's dynamic object) adds
+its box to the raycast and a `semantic` channel to the observations.
 
 Conventions: world y is up; cameras are +z forward / +y down (CV frame);
 depth images are z-depth along the camera axis.
@@ -230,6 +232,89 @@ class BoxScene:
         return free
 
 
+class SimObject:
+    """A kinematic dynamic object: an extra box with a random-walk motion
+    drawn from its own numpy generator (the reference's SimObject:
+    semantic id, translation, moving_randomly: a random yaw jitter and a
+    new random yaw off non-navigable positions)."""
+
+    def __init__(self, scene: BoxScene, semantic_id: int = 100,
+                 size=(0.3, 0.6, 0.3), start_xz=(0.8, -0.8),
+                 speed: float = 0.04, seed: int = 0):
+        self.scene = scene
+        self.semantic_id = int(semantic_id)
+        self.size = np.asarray(size, np.float32)
+        self.pos = np.array([start_xz[0], 0.0, start_xz[1]], np.float32)
+        self.yaw = 0.0
+        self.speed = float(speed)
+        self.rng = np.random.default_rng(seed)
+
+    @property
+    def translation(self) -> np.ndarray:
+        return self.pos.copy()
+
+    def set_translation(self, pos):
+        self.pos = np.asarray(pos, np.float32)
+
+    def aabb(self):
+        half = self.size / 2
+        lo = self.pos + np.array([-half[0], 0.0, -half[2]])
+        hi = self.pos + np.array([half[0], self.size[1], half[2]])
+        return tuple(lo), tuple(hi)
+
+    def object_pose(self) -> np.ndarray:
+        """4x4 world-from-object transform.  The box is axis-aligned (the
+        yaw only steers the walk), so the canonical object frame is a
+        translation: observations registered through its inverse stay put
+        while the object moves."""
+        T = np.eye(4, dtype=np.float64)
+        T[:3, 3] = self.pos
+        return T
+
+    def sample_surface_points(self, n: int, rng=None,
+                              frame: str = "world") -> np.ndarray:
+        """n area-weighted uniform points on the box's faces, in the world
+        frame or (frame='object') the canonical object frame: the object
+        reconstruction metric's ground truth."""
+        rng = rng or np.random.default_rng(0)
+        lo, hi = self.aabb()
+        if frame == "object":
+            lo, hi = np.asarray(lo) - self.pos, np.asarray(hi) - self.pos
+        lo, hi = np.asarray(lo), np.asarray(hi)
+        ext = hi - lo
+        # face areas: two each normal to x, y, z
+        areas = np.array([ext[1] * ext[2], ext[1] * ext[2],
+                          ext[0] * ext[2], ext[0] * ext[2],
+                          ext[0] * ext[1], ext[0] * ext[1]])
+        face = rng.choice(6, size=n, p=areas / areas.sum())
+        u, v = rng.uniform(size=(2, n))
+        pts = np.empty((n, 3), np.float32)
+        axis = face // 2            # 0 = x, 1 = y, 2 = z
+        side = face % 2             # 0 = the lo face, 1 = the hi face
+        for a in range(3):
+            b, c = [i for i in range(3) if i != a]
+            m = axis == a
+            pts[m, a] = np.where(side[m] == 1, hi[a], lo[a])
+            pts[m, b] = lo[b] + u[m] * ext[b]
+            pts[m, c] = lo[c] + v[m] * ext[c]
+        return pts
+
+    def _try_move(self, delta) -> bool:
+        nxt = self.pos + delta
+        if self.scene.is_navigable((nxt[0], 0.0, nxt[2])):
+            self.pos = nxt
+            return True
+        return False
+
+    def moving_randomly(self):
+        """A random yaw jitter, and a new random yaw where the step is not
+        navigable."""
+        self.yaw += self.rng.uniform(-0.4, 0.4)
+        d = np.array([np.sin(self.yaw), 0.0, np.cos(self.yaw)]) * self.speed
+        if not self._try_move(d):
+            self.yaw = self.rng.uniform(0, 2 * np.pi)
+
+
 def _raycast_device(lo, hi, inward, seeds, c2w, camera: Camera):
     """Per-pixel nearest-hit AABB raycast in plain torch on the tensors'
     device.  lo, hi (B, 3), inward (B,) bool, seeds (B,), c2w (4, 4) or
@@ -303,17 +388,23 @@ class FakeSim:
     3 = right.
     Observations are dict(rgb (H, W, 3), depth (H, W)) tensors on
     `device` plus the host c2w; render_at_batch renders a stack of poses
-    in one raycast (the evaluation's ground truth)."""
+    in one raycast (the evaluation's ground truth).  With a
+    `dynamic_object`, its box is part of every raycast, at its position
+    at the time of the call (no frame is cached, so a moved object shows
+    where it is), and the observations carry `semantic`, an (H, W) int32
+    numpy array: the object's semantic id where it is hit, else 0."""
 
     def __init__(self, scene: BoxScene, camera: Camera,
                  forward_step: float = 0.065, turn_angle: float = 10.0,
-                 cam_height: float = 1.25, seed: int = 0, device="cuda"):
+                 cam_height: float = 1.25, seed: int = 0,
+                 dynamic_object: SimObject | None = None, device="cuda"):
         self.scene = scene
         self.camera = camera
         self.forward_step = float(forward_step)
         self.turn_angle = float(turn_angle)
         self.cam_height = float(cam_height)
         self.device = torch.device(device)
+        self.dynamic_object = dynamic_object
         b = scene.boxes()
         self._boxes = (torch.as_tensor(b.lo, device=self.device),
                        torch.as_tensor(b.hi, device=self.device),
@@ -324,10 +415,26 @@ class FakeSim:
         self.collided_last = False
         self.reset()
 
+    def _boxes_now(self):
+        """The scene's boxes plus the dynamic object's box where it is
+        now, and the object's box index (-1 without an object)."""
+        if self.dynamic_object is None:
+            return self._boxes, -1
+        lo, hi = self.dynamic_object.aabb()
+        dev = self.device
+        extra = (torch.tensor([lo], dtype=torch.float32, device=dev),
+                 torch.tensor([hi], dtype=torch.float32, device=dev),
+                 torch.zeros(1, dtype=torch.bool, device=dev),
+                 torch.full((1,), 17.0, device=dev))
+        return (tuple(torch.cat([a, b]) for a, b in zip(self._boxes, extra)),
+                self._boxes[0].shape[0])
+
     def _raycast(self, c2w):
         c2w_t = torch.as_tensor(np.asarray(c2w, np.float32),
                                 device=self.device)
-        return _raycast_device(*self._boxes, c2w_t, self.camera)
+        boxes, obj_idx = self._boxes_now()
+        rgb, depth, hit = _raycast_device(*boxes, c2w_t, self.camera)
+        return rgb, depth, hit, obj_idx
 
     def reset(self, start_xz=(0.0, 0.0), yaw: float = 0.0):
         c, s = np.cos(yaw), np.sin(yaw)
@@ -341,8 +448,13 @@ class FakeSim:
         return self.get_observations()
 
     def get_observations(self):
-        rgb, depth, _hit = self._raycast(self.c2w)
-        return dict(rgb=rgb, depth=depth, c2w=self.c2w.copy())
+        rgb, depth, hit, obj_idx = self._raycast(self.c2w)
+        obs = dict(rgb=rgb, depth=depth, c2w=self.c2w.copy())
+        if self.dynamic_object is not None:
+            sem = torch.where(hit == obj_idx, self.dynamic_object.semantic_id,
+                              0).to(torch.int32)
+            obs["semantic"] = sem.cpu().numpy()
+        return obs
 
     def step(self, action_id: int):
         next_c2w = compute_next_campos(self.c2w, int(action_id),
@@ -362,14 +474,14 @@ class FakeSim:
 
     def render_at(self, c2w):
         """Ground-truth (rgb, depth) tensors at a c2w pose."""
-        rgb, depth, _hit = self._raycast(c2w)
+        rgb, depth, _hit, _obj = self._raycast(c2w)
         return rgb, depth
 
     def render_at_batch(self, c2ws):
         """Ground-truth rgb (P, H, W, 3) and depth (P, H, W) tensors at
         (P, 4, 4) c2w poses, in one raycast; pose i equals render_at at
         pose i to the bit."""
-        rgb, depth, _hit = self._raycast(c2ws)
+        rgb, depth, _hit, _obj = self._raycast(c2ws)
         return rgb, depth
 
     def is_navigable(self, pos) -> bool:

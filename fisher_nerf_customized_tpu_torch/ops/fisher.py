@@ -13,6 +13,18 @@ full_chain=True adds the cov2D-through-mean term (the reference's
 computeCov2DCUDA dL_dmean, summed with the projection term before the
 per-pixel square) through the 20-wide packing; False keeps the reduced
 projection chain through the 11-wide packing.
+
+The object branch's estimators (`hutchinson_diag`, `block_jtj`,
+`hutchinson_batch`) take diag(JᵀJ) of the rendered color over all
+Gaussian parameter groups from K probes z ~ N(0, I) through one forward:
+K1 once for every pose of a batch, the probe-batched K2 once for all
+probes (ops/cuda_blend_bwd.py), and torch.func.vmap over the VJP of the
+row packing and preprocess, which carries each probe's rows back to the
+Gaussians.  The probes are an argument: the JAX package draws them from
+jax.random, which torch cannot reproduce, so callers draw their own
+(GaussianObjectSLAM from torch generators) and tests feed the JAX draws.
+The T- and D-optimality scores (`topt_score_*`, `dopt_score_*`) are the
+JAX package's.
 """
 from __future__ import annotations
 
@@ -20,6 +32,8 @@ import torch
 
 from .binning import tile_bin
 from .camera import Camera
+from .cuda_blend import cuda_blend
+from .cuda_blend_bwd import cuda_blend_bwd_probes
 from .cuda_fisher import cuda_fisher_slots, pack_fisher_features
 from .projection import build_cov3d, conic_mean_jac, preprocess
 from .rasterize import RenderSettings, tile_pixel_coords
@@ -81,3 +95,160 @@ def fisher_diag_batch(camera: Camera, w2cs, means_world, scales, quats,
                  h_slots.reshape(-1, 4))
     return dict(H=h.reshape(nb, n, 4), radii=prep.radius,
                 visible=prep.radius > 0)
+
+
+def _image_to_tiles(img, nty: int, ntx: int, ts: int):
+    """(..., H, W, C) image -> (..., T, P, C) tile-pixel layout, zeros in
+    the padding: the adjoint of rasterize._tiles_to_image."""
+    lead, (h, w, c) = img.shape[:-3], img.shape[-3:]
+    pad = img.new_zeros(lead + (nty * ts, ntx * ts, c))
+    pad[..., :h, :w, :] = img
+    pad = pad.reshape(lead + (nty, ts, ntx, ts, c)).transpose(-4, -3)
+    return pad.reshape(lead + (nty * ntx, ts * ts, c))
+
+
+def hutchinson_kernel_inputs(camera: Camera, means_cam, scales, quats,
+                             opacities, colors, zs, active=None,
+                             settings: RenderSettings = RenderSettings()):
+    """The forward of `hutchinson_batch` and the probe-batched K2's
+    inputs: preprocess and binning at each pose, the K1 rows of every
+    (pose, tile) with the VJP of their packing, K1 once, and the probes
+    in K2's layout.  Returns a dict: packed (B T, K, 8+C), pix_xy, nvalid,
+    K1's color, t_final and walked, gcol (K, B T, P, C) and g_t
+    (K, B T, P) (0: the render's background is 0, so no cotangent reaches
+    the final T), valid (B T, K, 1) the slot-valid column, vjp_fn (of the
+    packing, in the pose's means, scales, quaternions and opacities) and
+    radii (B, N)."""
+    st = settings
+    nb, n = means_cam.shape[:2]
+    n_probes = zs.shape[1]
+    sc = scales.expand(nb, n, 3)
+    qt = quats.expand(nb, n, 4)
+    op = opacities.expand(nb, n)
+    with torch.no_grad():
+        prep = preprocess(means_cam, sc, qt, camera, active=active)
+        bins = tile_bin(prep.mean2d, prep.radius, prep.depth, prep.valid,
+                        camera.width, camera.height, st.tile_size,
+                        st.max_per_tile)
+    n_tiles, k = bins.table.shape[-2:]
+    idx = bins.table.reshape(nb, -1, 1)
+    valid = bins.slot_valid.reshape(nb * n_tiles, k, 1).to(means_cam.dtype)
+    cols = colors.expand(nb, n, colors.shape[-1])
+
+    def pack(mc, s, q, o):
+        """The K1 rows of every (pose, tile): (B T, K, 8+C)."""
+        pr = preprocess(mc, s, q, camera, active=active)
+        feat = torch.cat([pr.mean2d, pr.conic, o[..., None],
+                          pr.depth[..., None], cols], dim=-1)
+        rows = torch.gather(feat, 1, idx.expand(-1, -1, feat.shape[-1]))
+        rows = rows.reshape(nb * n_tiles, k, -1)
+        return torch.cat([rows[..., :7], valid, rows[..., 7:]], dim=-1)
+
+    packed, vjp_fn = torch.func.vjp(pack, means_cam, sc, qt, op)
+    packed = packed.detach().contiguous()
+    pix_x, pix_y = tile_pixel_coords(bins.n_tiles_x, bins.n_tiles_y,
+                                     st.tile_size, device=packed.device)
+    pix_xy = torch.stack([pix_x, pix_y], dim=1).repeat(nb, 1, 1)
+    nvalid = bins.slot_valid.reshape(nb * n_tiles, k).sum(
+        dim=-1, dtype=torch.int32)
+    (color, t_final, _med), walked = cuda_blend(packed, pix_xy, nvalid,
+                                                st.chunk, st.max_depth)
+    gcol = _image_to_tiles(zs.transpose(0, 1), bins.n_tiles_y,
+                           bins.n_tiles_x, st.tile_size)
+    gcol = gcol.reshape(n_probes, nb * n_tiles, -1,
+                        colors.shape[-1]).contiguous()
+    return dict(packed=packed, pix_xy=pix_xy, nvalid=nvalid, color=color,
+                t_final=t_final, walked=walked.to(torch.int32), gcol=gcol,
+                g_t=gcol.new_zeros(gcol.shape[:-1]), valid=valid,
+                vjp_fn=vjp_fn, radii=prep.radius)
+
+
+def hutchinson_batch(camera: Camera, means_cam, scales, quats, opacities,
+                     colors, zs, active=None,
+                     settings: RenderSettings = RenderSettings()):
+    """Jᵀz of the rendered color for K probes at each of B poses.
+
+    means_cam (B, N, 3) camera-frame means at each pose; scales (N, 3),
+    quats (N, 4), opacities (N,), colors (N, C) shared; zs (B, K, H, W, C)
+    the probes (image cotangents).  Returns dict(means (K, B, N, 3),
+    scales (K, B, N, 3), rotations (K, B, N, 4), opacity (K, B, N), radii
+    (B, N)): the gradient of <z_k, render_b> with respect to the pose's
+    camera-frame means, scales, quaternions and opacities, with the
+    render's VJP conventions (ops/rasterize.py BlendFunction)."""
+    x = hutchinson_kernel_inputs(camera, means_cam, scales, quats, opacities,
+                                 colors, zs, active=active, settings=settings)
+    slots = cuda_blend_bwd_probes(x["packed"], x["pix_xy"], x["gcol"],
+                                  x["g_t"], x["nvalid"], settings.chunk,
+                                  color=x["color"], t_final=x["t_final"],
+                                  walked=x["walked"])
+    # d_packed as BlendFunction.backward gives it: 0 in the depth and
+    # valid columns and on invalid slots
+    zeros = slots.new_zeros(slots.shape[:-1] + (2,))
+    d_packed = torch.cat([slots[..., :6], zeros, slots[..., 6:]], dim=-1)
+    g_means, g_scales, g_quats, g_opac = torch.func.vmap(x["vjp_fn"])(
+        d_packed * x["valid"])
+    return dict(means=g_means, scales=g_scales, rotations=g_quats,
+                opacity=g_opac, radii=x["radii"])
+
+
+def hutchinson_diag(camera: Camera, means_cam, scales, quats, opacities,
+                    colors, zs, active=None,
+                    settings: RenderSettings = RenderSettings()):
+    """Hutchinson diag(JᵀJ) over all Gaussian parameter groups at one
+    pose: (1/K) Σ_k (Jᵀz_k)², the probes zs (K, H, W, C).  Returns
+    dict(means (N, 3), opacity (N, 1), rotations (N, 4), scales (N, 3),
+    radii, visible), as the JAX package's hutchinson_diag."""
+    g = hutchinson_batch(camera, means_cam[None], scales, quats, opacities,
+                         colors, zs[None], active=active, settings=settings)
+    return dict(means=(g["means"][:, 0] ** 2).mean(dim=0),
+                scales=(g["scales"][:, 0] ** 2).mean(dim=0),
+                rotations=(g["rotations"][:, 0] ** 2).mean(dim=0),
+                opacity=(g["opacity"][:, 0] ** 2).mean(dim=0)[:, None],
+                radii=g["radii"][0], visible=g["radii"][0] > 0)
+
+
+def block_jtj(camera: Camera, means_cam, scales, quats, opacities, colors,
+              zs, active=None, settings: RenderSettings = RenderSettings()):
+    """Per-splat 11 x 11 JᵀJ blocks (means, opacity, rotations, scales)
+    from Hutchinson outer products over the probes zs (K, H, W, C).
+    Returns dict(blocks (N, 11, 11), radii, visible); invisible splats'
+    blocks are 0."""
+    g = hutchinson_batch(camera, means_cam[None], scales, quats, opacities,
+                         colors, zs[None], active=active, settings=settings)
+    v = torch.cat([g["means"][:, 0], g["opacity"][:, 0, :, None],
+                   g["rotations"][:, 0], g["scales"][:, 0]], dim=-1)
+    blocks = (v[..., :, None] * v[..., None, :]).mean(dim=0)
+    return dict(blocks=blocks, radii=g["radii"][0],
+                visible=g["radii"][0] > 0)
+
+
+def topt_score_from_diags(h_train_diag, jtj_diag, lam: float = 1e-6):
+    """T-optimality (maximize): -Σ 1/(H_train + JᵀJ + λ)."""
+    hpi = h_train_diag + jtj_diag + lam
+    return -torch.sum(1.0 / torch.clamp(hpi, min=1e-12))
+
+
+def dopt_score_from_diags(h_train_diag, jtj_diag, lam: float = 1e-6):
+    """D-optimality (maximize): Σ log(H+J+λ) − Σ log(H+λ)."""
+    hm = torch.clamp(h_train_diag + lam, min=1e-12)
+    hpi = torch.clamp(hm + jtj_diag, min=1e-12)
+    return torch.sum(torch.log(hpi)) - torch.sum(torch.log(hm))
+
+
+def topt_score_blocks(h_blocks, j_blocks, valid, lam: float = 1e-6):
+    """Block T-opt: −Σ trace((H+J+λI)⁻¹) over valid splats, through the
+    eigenvalues of the PSD sum (finite for rank-deficient blocks)."""
+    ev = torch.linalg.eigvalsh(h_blocks + j_blocks)
+    tr = torch.sum(1.0 / (torch.clamp(ev, min=0.0) + lam), dim=-1)
+    return -torch.sum(torch.where(valid, tr, torch.zeros_like(tr)))
+
+
+def dopt_score_blocks(h_blocks, j_blocks, valid, lam: float = 1e-6):
+    """Block D-opt: Σ (logdet(H+J+λI) − logdet(H+λI)) over valid splats,
+    through eigenvalues as `topt_score_blocks`."""
+    ev1 = torch.linalg.eigvalsh(h_blocks + j_blocks)
+    ev0 = torch.linalg.eigvalsh(h_blocks)
+    l1 = torch.sum(torch.log(torch.clamp(ev1, min=0.0) + lam), dim=-1)
+    l0 = torch.sum(torch.log(torch.clamp(ev0, min=0.0) + lam), dim=-1)
+    d = l1 - l0
+    return torch.sum(torch.where(valid, d, torch.zeros_like(d)))

@@ -51,6 +51,47 @@ def generate_candidates(center_points: np.ndarray, k: int, radius: float,
     return c2ws
 
 
+def generate_candidates_object(anchor_points: np.ndarray, k: int,
+                               radius: float, min_range: float,
+                               cam_height: float, rng: np.random.Generator,
+                               expansion: float = 1.0,
+                               theta_step_deg: float = 15.0,
+                               radial_bins: int = 6,
+                               radial_spacing: str = "linear") -> np.ndarray:
+    """K c2w poses (K, 4, 4) around an object: a sorted grid of angles
+    (theta_step_deg apart) times radial rings, cycled over K anchors drawn
+    with replacement from the object's footprint cells (M, 2) xz; each
+    pose looks back at its anchor (the reference's
+    generate_candidate_adv_object, mode 'sorted')."""
+    radius = radius * expansion
+    anchors = anchor_points[rng.integers(0, len(anchor_points), k)]
+    n_theta = max(1, int(round(360.0 / theta_step_deg)))
+    thetas = np.linspace(0.0, 2 * np.pi, n_theta, endpoint=False)
+    radial_bins = max(1, int(radial_bins))
+    if radial_spacing == "sqrt_area" and radial_bins > 1:
+        u = np.linspace(0.0, 1.0, radial_bins)
+        r_vals = np.sqrt(min_range ** 2 + u * (radius ** 2 - min_range ** 2))
+    else:
+        r_vals = np.linspace(min_range, max(radius, min_range), radial_bins)
+    grid_t, grid_r = np.meshgrid(thetas, r_vals, indexing="ij")
+    grid = np.stack([grid_t.ravel(), grid_r.ravel()], -1)   # (T*B, 2)
+    sel = np.arange(k) % len(grid)
+    theta, rr = grid[sel, 0], grid[sel, 1]
+
+    pos = np.zeros((k, 3), np.float32)
+    pos[:, 0] = anchors[:, 0] + rr * np.sin(theta)
+    pos[:, 1] = cam_height
+    pos[:, 2] = anchors[:, 1] + rr * np.cos(theta)
+    R = _yaw_rotmat(theta + np.pi)
+    R[:, :, 0] *= -1.0
+    R[:, :, 1] *= -1.0
+    c2ws = np.zeros((k, 4, 4), np.float32)
+    c2ws[:, :3, :3] = R
+    c2ws[:, :3, 3] = pos
+    c2ws[:, 3, 3] = 1.0
+    return c2ws
+
+
 def sample_random_candidates(agent_pos: np.ndarray, free_space: np.ndarray,
                              grid_dim, cell_size: float, map_center,
                              rng: np.random.Generator,

@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's planning/planner.py (the reference
 AstarPlanner's API): init / update_occ_map / build_frontiers /
-setup_start / planning / global_planning / add_obstacle /
-convert_to_map / convert_to_world / pose_eval (a uniform stub) /
-save / load.  The
+setup_start / planning / global_planning / global_object_planning /
+add_obstacle / convert_to_map / convert_to_world / pose_eval (a uniform
+stub) / save / load.  The
 (3, Gz, Gx) occupancy map stays on the planner's device and takes one
 vote update per frame (planning/occupancy.py); a planning event pulls its
 uint8 label map once and runs the morphology, connected components and
@@ -13,8 +13,7 @@ cv2), then one device sweep field serves every goal (planning/sweep.py).
 
 Not ported yet (ROADMAP.md): the host A* backend
 (`explore.planner_backend: astar`), known-environment mode
-(init_known_env, cover_fov_2d), object planning, render_bev and the
-planning PNGs.
+(init_known_env, cover_fov_2d), render_bev and the planning PNGs.
 """
 from __future__ import annotations
 
@@ -23,8 +22,8 @@ import torch
 
 from ..ops.camera import Camera
 from ..utils import raster
-from .candidates import (generate_candidates, generate_random_gaussians,
-                         sample_random_candidates)
+from .candidates import (generate_candidates, generate_candidates_object,
+                         generate_random_gaussians, sample_random_candidates)
 from .occupancy import occ_update
 from .sweep import SweepSearch
 
@@ -66,6 +65,10 @@ class AstarPlanner:
         self.K = int(ex["sample_view_num"])
         self.radius = float(ex["sample_range"])
         self.min_range = float(ex["min_range"])
+        ob = slam_config["explore_object"]
+        self.K_object = int(ob["sample_view_num"])
+        self.radius_object = float(ob["sample_range"])
+        self.min_range_object = float(ob["min_range"])
         self.centering = bool(ex["centering"])
         self.frontier_select_method = str(ex["frontier_select_method"])
         self.shortcut_path = bool(ex["shortcut_path"])
@@ -436,16 +439,8 @@ class AstarPlanner:
                     candidate_pos, self.K, self.radius, self.min_range,
                     self.cam_height, self.rng, expansion=exp)
                 exp *= 1.5
-                eroded = raster.erode_square(free_space, 10)
-                if eroded.sum() > 40:
-                    xy = candidate_pose[:, [0, 2], 3]
-                    gx = ((xy[:, 0] - self.map_center[0]) / self.cell_size
-                          + self.grid_dim[0] // 2).astype(np.int64)
-                    gz = ((xy[:, 1] - self.map_center[1]) / self.cell_size
-                          + self.grid_dim[1] // 2).astype(np.int64)
-                    gx = np.clip(gx, 0, self.grid_dim[0] - 1)
-                    gz = np.clip(gz, 0, self.grid_dim[1] - 1)
-                    candidate_pose = candidate_pose[eroded[gz, gx] > 0]
+                candidate_pose = candidate_pose[self._free_cells(
+                    candidate_pose[:, [0, 2], 3], free_space)]
                 if exp > 100:
                     break
 
@@ -480,6 +475,86 @@ class AstarPlanner:
         if defer_scores:
             return finish
         return finish()
+
+    def _free_cells(self, xz, free_space) -> np.ndarray:
+        """Which world xz points (M, 2) fall on a cell of the eroded free
+        space; all of them when it has 40 cells or fewer."""
+        eroded = raster.erode_square(free_space, 10)
+        if eroded.sum() <= 40:
+            return np.ones(len(xz), bool)
+        gx = np.clip(((xz[:, 0] - self.map_center[0]) / self.cell_size
+                      + self.grid_dim[0] // 2).astype(np.int64),
+                     0, self.grid_dim[0] - 1)
+        gz = np.clip(((xz[:, 1] - self.map_center[1]) / self.cell_size
+                      + self.grid_dim[1] // 2).astype(np.int64),
+                     0, self.grid_dim[1] - 1)
+        return eroded[gz, gx] > 0
+
+    def build_object_frontiers(self, gaussian_points):
+        """The object's footprint cells as world xz (M, 2): the cells hit
+        by more than 3 of the object's Gaussians; None if there is none.
+        Candidate rings anchor on them, so viewpoints spread around the
+        object's whole extent."""
+        if gaussian_points is None:
+            return None
+        pts = np.asarray(gaussian_points)
+        if len(pts) == 0:
+            return None
+        gx, gz = self._discretize(pts[:, 0], pts[:, 2])
+        flat = gz * self.grid_dim[0] + gx
+        uniq, counts = np.unique(flat, return_counts=True)
+        uniq = uniq[counts > 3]
+        if len(uniq) == 0:
+            return None
+        cells = np.stack([uniq % self.grid_dim[0],
+                          uniq // self.grid_dim[0]], axis=1)   # [x, z]
+        return (cells - np.array([[self.grid_dim[0] // 2,
+                                   self.grid_dim[1] // 2]])) \
+            * self.cell_size + self.map_center[None, :]
+
+    def global_object_planning(self, pose_evaluation_fn=None,
+                               gaussian_points=None,
+                               gaussian_points_scene=None, expansion=1,
+                               agent_pose=None, criterion: str | None = None):
+        """Candidate poses on the sorted angle and radius grid around the
+        object's footprint cells (its Gaussians' centroid with
+        `explore.centering`), kept on the eroded free space, scored by the
+        object SLAM's pose_eval (criterion 'fisher') or pose_eval_popgs
+        ('topt', 'dopt'), best 20 first.  gaussian_points: the object's
+        Gaussians; gaussian_points_scene: the scene's, which block cells
+        of the free space.  Returns (poses, scores, None) as numpy
+        arrays, or (None, None, None)."""
+        if gaussian_points is None or len(np.asarray(gaussian_points)) == 0:
+            return None, None, None
+        obj_pts = np.asarray(gaussian_points)
+        free_space = self.build_connected_freespace(gaussian_points_scene)
+        anchors = self.build_object_frontiers(obj_pts)
+        if anchors is None:
+            anchors = obj_pts[:, [0, 2]]
+        if self.centering:
+            anchors = anchors.mean(axis=0, keepdims=True)
+        exp = float(expansion)
+        candidate_pose = np.zeros((0, 4, 4), np.float32)
+        while len(candidate_pose) == 0 and exp < 100:
+            candidate_pose = generate_candidates_object(
+                anchors, self.K_object, self.radius_object,
+                self.min_range_object, self.cam_height, self.rng,
+                expansion=exp)
+            exp *= 1.5
+            candidate_pose = candidate_pose[self._free_cells(
+                candidate_pose[:, [0, 2], 3], free_space)]
+        if len(candidate_pose) == 0:
+            return None, None, None
+        if pose_evaluation_fn is None:
+            scores, poses = self.pose_eval(candidate_pose)
+        elif criterion in ("topt", "dopt"):
+            scores, poses = pose_evaluation_fn(candidate_pose,
+                                               criterion=criterion)
+        else:
+            scores, poses = pose_evaluation_fn(candidate_pose)
+        scores, poses = _host(scores), _host(poses)
+        order = np.argsort(-scores, kind="stable")[:20]
+        return poses[order], scores[order], None
 
     # -- persistence --------------------------------------------------------
     def save(self, path: str, **extra):

@@ -379,31 +379,58 @@ def thick_line_box(p0, p1, thickness: int, shape):
 def fill_poly(shape, points) -> np.ndarray:
     """cv2.fillPoly(np.zeros(shape, uint8), [points], 1), LINE_8, one
     contour of integer (x, y) points, as a uint8 grid: the outline's
-    Bresenham lines plus the edge-list scanline fill, with cv2's clipping
-    of the edges that leave the grid."""
+    Bresenham lines plus the edge-list scanline fill, cell for cell, the
+    grid's border included.
+
+    An edge that leaves the grid is clipped (cv2.clipLine).  Its outline
+    is the clipped segment's line; its scanline edge follows the clipped
+    segment over the rows of that segment, its end row included, and on
+    the edge's other rows stands just outside the grid (x = -1 or x = W),
+    on the side of the clipped end next to them."""
     h, w = shape
     v = [(int(p[0]), int(p[1])) for p in np.asarray(points).reshape(-1, 2)]
     pts, edges = [], []
+
+    def add(y0, y1, a, b):
+        """An edge over rows [y0, y1) on the line through a and b."""
+        if y0 < y1:
+            dx = ((b[0] - a[0]) << _XY_SHIFT) // (b[1] - a[1])
+            edges.append((y0, y1, (a[0] << _XY_SHIFT) + (y0 - a[1]) * dx,
+                          dx))
+
+    def outside(y0, y1, end):
+        """A vertical edge over rows [y0, y1) just outside the grid, on
+        the side of the clipped end `end`."""
+        if y0 < y1:
+            edges.append((y0, y1, (-1 if end[0] <= 0 else w) << _XY_SHIFT,
+                          0))
+
     p0 = v[-1]
     for p1 in v:
-        c0, c1 = (p0[0], p0[1]), (p1[0], p1[1])
-        if not (0 <= p0[0] < w and 0 <= p1[0] < w and 0 <= p0[1] < h
+        lo, hi = (p0, p1) if p0[1] < p1[1] else (p1, p0)
+        if (0 <= p0[0] < w and 0 <= p1[0] < w and 0 <= p0[1] < h
                 and 0 <= p1[1] < h):
-            ok, *ends = _clip_ends(w, h, *p0, *p1)
-            if ok:
-                pts += _line_points(*ends)
-            if ends[1] != ends[3]:
-                c0, c1 = (ends[0], ends[1]), (ends[2], ends[3])
-            else:
-                c0, c1 = (ends[0], p0[1]), (ends[2], p1[1])
-        else:
             pts += _line_points(*p0, *p1)
-        if p0[1] != p1[1]:
-            (y0, ya), (y1, yb) = ((p0[1], c0), (p1[1], c1)) \
-                if p0[1] < p1[1] else ((p1[1], c1), (p0[1], c0))
-            dx = ((yb[0] - ya[0]) << _XY_SHIFT) // (yb[1] - ya[1])
-            edges.append((y0, y1, (ya[0] << _XY_SHIFT) + (y0 - ya[1]) * dx,
-                          dx))
+            add(lo[1], hi[1], lo, hi)
+        else:
+            ok, x0, y0, x1, y1 = _clip_ends(w, h, *p0, *p1)
+            if ok:
+                pts += _line_points(x0, y0, x1, y1)
+            if y0 == y1:
+                # the clipped ends' x at the edge's own rows
+                a, b = ((x0, p0[1]), (x1, p1[1])) if p0[1] < p1[1] \
+                    else ((x1, p1[1]), (x0, p0[1]))
+                add(lo[1], hi[1], a, b)
+            else:
+                a, b = ((x0, y0), (x1, y1)) if y0 < y1 else ((x1, y1),
+                                                             (x0, y0))
+                if ok:
+                    ya, yb = max(lo[1], a[1]), min(hi[1], b[1] + 1)
+                    add(ya, yb, a, b)
+                    outside(lo[1], ya, a)
+                    outside(yb, hi[1], b)
+                else:
+                    add(lo[1], hi[1], a, b)
         p0 = p1
     spans = []
     half = _XY_ONE >> 1

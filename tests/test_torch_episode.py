@@ -240,9 +240,13 @@ def test_entry_point_runs_an_episode(tmp_path, capsys):
     assert "completeness_ratio" in steps[0]
 
 
-@pytest.mark.parametrize("flag", [["--sim", "habitat"], ["--object_scene"],
-                                  ["--known_env"], ["--dynamic_scene"],
-                                  ["--lpips_weights", "alex.pth"]])
+@pytest.mark.parametrize("flag", [["--sim", "habitat"], ["--dino_gate"],
+                                  ["--known_env"],
+                                  ["--dino_weights", "dino.pth"],
+                                  ["--lpips_weights", "alex.pth"],
+                                  ["--ensemble_dir", "ensemble"],
+                                  ["--object_scene", "--known_env"],
+                                  ["--object_scene", "--dino_gate"]])
 def test_entry_point_refuses_unported_flags(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--device", "cpu", "--log_dir", str(tmp_path)] + flag)

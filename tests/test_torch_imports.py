@@ -24,6 +24,11 @@ EPISODE_MODULES = [
 EVAL_MODULES = [
     "engine/eval.py", "utils/pointcloud.py", "utils/io.py",
     "tools/multi_scene_sweep.py"]
+# the object branch's modules
+OBJECT_MODULES = [
+    "models/object_slam.py", "engine/object_planning.py",
+    "engine/seg_metrics.py", "ops/fisher.py", "ops/cuda_blend_bwd.py",
+    "envs/fake_sim.py"]
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -37,7 +42,8 @@ def test_no_jax_imports(path):
 
 def test_episode_modules_are_checked():
     port = ROOT / "fisher_nerf_customized_tpu_torch"
-    assert all(port / m in FILES for m in EPISODE_MODULES + EVAL_MODULES)
+    assert all(port / m in FILES
+               for m in EPISODE_MODULES + EVAL_MODULES + OBJECT_MODULES)
 
 
 def test_forbidden_pattern_catches_jax_imports():

@@ -2,11 +2,10 @@
 (cv2, which the JAX package uses) on hypothesis grids and shapes.
 
 Tolerance: exact, cell for cell, everywhere (label numbers included:
-label8 reproduces cv2's numbering), with one stated exception: where a
-polygon's edge leaves the grid, fill_poly may differ from cv2.fillPoly
-on cells of the grid's outermost row or column, and only there
-(ROADMAP.md, queue 3 item j).  Thick lines are drawn between cells of the
-grid, as the planner's collision check draws them.
+label8 reproduces cv2's numbering), fill_poly's cells on the grid's
+border included where a polygon's edge leaves the grid.  Thick lines
+are drawn between cells of the grid, as the planner's collision check
+draws them.
 """
 import cv2
 import numpy as np
@@ -149,16 +148,12 @@ def test_fill_poly_matches_cv2_inside_the_grid(h, w, data):
 @SETTINGS
 @given(st.integers(8, 60), st.integers(8, 60), st.data())
 def test_fill_poly_wedges_differ_only_on_the_border(h, w, data):
+    # the name is kept from when the border cells could differ; the fill
+    # now equals cv2's on every cell, edges that leave the grid included
     cx, cy = data.draw(points(w, h))
     yaw = data.draw(st.floats(0.0, 2 * np.pi))
     r = data.draw(st.integers(2, 70))
     poly = _wedge(cx, cy, yaw, r)
     ref = np.zeros((h, w), np.uint8)
     cv2.fillPoly(ref, [poly], 1)
-    got = raster.fill_poly((h, w), poly)
-    inside = (poly[:, 0] >= 0).all() and (poly[:, 0] < w).all() and \
-        (poly[:, 1] >= 0).all() and (poly[:, 1] < h).all()
-    if inside:
-        np.testing.assert_array_equal(got, ref)
-    else:
-        np.testing.assert_array_equal(got[1:-1, 1:-1], ref[1:-1, 1:-1])
+    np.testing.assert_array_equal(raster.fill_poly((h, w), poly), ref)
