@@ -76,6 +76,41 @@ Phases, one line each:
                    and dopt and the last object planning event's path
                    scores on the card against the CPU's plain twins from
                    the same probes (same argmax, Spearman >= 0.99);
+  recon_check      the reconstruction metric with its nearest neighbours
+                   from the 1-NN kernel (engine/eval.py::_nn_dists, from
+                   1e8 pairs up) against the host cKDTree's on the same
+                   clouds, rtol 1e-9: the episode's and the object
+                   episode's final scene clouds against their 1.2 M-point
+                   ground truth (and each episode's running metric, built
+                   on the card update by update, against cKDTree's
+                   one-shot), and the object's own cloud at 1 cm; prints
+                   the queries whose kernel row differs from cKDTree's
+                   (argmin disagreements), both one-shot times and the
+                   episode's recon_metric seconds per update;
+  known_env        the known-environment mode through the entry point
+                   (cli.run_scene, as `python -m
+                   fisher_nerf_customized_tpu_torch --object_scene
+                   --known_env` runs it) at the same width on
+                   fake_apartment_5, 40 steps, no evaluation: the planner
+                   seeded from the scene's 400 000-point cloud without the
+                   object, coverage probes each step, the object found by
+                   the novelty mask (the 1-NN kernel, 65 536 pixels
+                   against the cloud, every step).  Launch counts zeroed
+                   just before and read just after: the 1-NN kernel at
+                   least once per step, K1 and K2.  It fails unless the
+                   episode reaches its end and finds the object; prints
+                   the step it was found, and holds the novelty masks of
+                   three of its frames on the card against a float64
+                   cKDTree reference on the CPU (equal but within 1e-3 m
+                   of the 5 cm cut, the 20-pixel gate the same);
+  navigation       the frontier-only pipeline through its entry point
+                   (cli.run_navigation, as `python -m
+                   fisher_nerf_customized_tpu_torch.main_navigation` runs
+                   it) on fake_apartment_0 for 100 steps: the spin,
+                   occupancy, FBE goals, the sweep planner, and the recon
+                   metric of the whole cloud every 25 steps (the 1-NN
+                   kernel, launch count zeroed just before and read just
+                   after); the final recon held to cKDTree's at rtol 1e-9;
   slice            the map-query path at the same width: 60 scripted steps
                    through GaussianSLAM.track_rgbd (6 mapping events of
                    densify + 60 Adam steps of 2 frames), then renders at 8
@@ -106,6 +141,17 @@ Phases, one line each:
                    and the live ones, which set the bound; the ptxas report
                    of each K3 instantiation must show no stack frame and no
                    spills;
+  kernel_nn1       the 1-NN kernel against its plain twin on the card, to
+                   the bit in distance and row, at the recon metric's
+                   shape (the 1.2 M ground-truth points against 80 000
+                   points of the episode's cloud) and the novelty mask's
+                   (65 536 pixels of a known-env frame against the
+                   400 000-point cloud), each timed (CUDA events, the
+                   profiler's device time beside) with its
+                   twin, torch.cdist(...).min(1) and its bound; then exact
+                   ties across tile and split borders with 3000 queries
+                   (the refs split over gridDim.y), a mask with NaN and
+                   inf in masked rows, and an all-masked cloud;
   wrappers         what K1's and K2's wrappers cost the host per mapping
                    event: each kernel phase times its wrapper's host work
                    per call (checks, allocations, the ctypes launch; no
@@ -134,9 +180,10 @@ Phases, one line each:
                    final state (its K2 launches are the probe-batched
                    ones);
   kernels          one line per kernel with its launches (the episode's;
-                   the probe-batched K2's from the object episode) and max
-                   error; K3's 20-wide variant and the probe-batched K2
-                   have their own lines.
+                   the probe-batched K2's from the object episode, the
+                   1-NN's from the known-env episode) and max error; K3's
+                   20-wide variant and the probe-batched K2 have their own
+                   lines.
 Then one JSON line of per-kernel numbers, the card's name and power limit
 (nvidia-smi), and the last line {"ok": true, "device": {...}}.  Any
 failure raises: the exit code is then nonzero and no result line prints.
@@ -197,6 +244,10 @@ MIN_PLANNING_EVENTS = 2
 OBJECT_SCENE = "fake_apartment_5"
 OBJECT_STEPS = 40
 MIN_OBJECT_MAPPING = 3
+# the known-environment episode (--object_scene --known_env) on the object
+# scene, and the frontier-only navigation on the episode's scene
+KNOWN_ENV_STEPS = 40
+NAV_STEPS = 100
 
 
 T_START = time.perf_counter()
@@ -410,7 +461,7 @@ def run_episode(log_dir):
     from fisher_nerf_customized_tpu_torch.engine import driver
     from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
                                                       cuda_blend_bwd,
-                                                      cuda_fisher)
+                                                      cuda_fisher, cuda_knn)
     args = cli.build_parser().parse_args([
         "--slam_config", os.path.join(HERE, "configs",
                                       "mp3d_gaussian_FR_eccv.yaml"),
@@ -435,6 +486,7 @@ def run_episode(log_dir):
     cuda_blend_bwd.launches = 0
     cuda_fisher.launches = 0
     cuda_fisher.launches_full = 0
+    cuda_knn.launches = 0
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -446,7 +498,8 @@ def run_episode(log_dir):
     launches = dict(blend=cuda_blend.launches,
                     blend_bwd=cuda_blend_bwd.launches,
                     fisher=cuda_fisher.launches - cuda_fisher.launches_full,
-                    fisher_nf20=cuda_fisher.launches_full)
+                    fisher_nf20=cuda_fisher.launches_full,
+                    nn1=cuda_knn.launches)
     return args, cfg, result, mapper, wall_s, launches, ev
 
 
@@ -938,7 +991,7 @@ def run_object_episode(log_dir):
     from fisher_nerf_customized_tpu_torch.models import object_slam
     from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
                                                       cuda_blend_bwd,
-                                                      cuda_fisher)
+                                                      cuda_fisher, cuda_knn)
     args = cli.build_parser().parse_args([
         "--slam_config", os.path.join(HERE, "configs",
                                       "mp3d_gaussian_FR_eccv.yaml"),
@@ -966,6 +1019,7 @@ def run_object_episode(log_dir):
     cuda_blend_bwd.launches_probes = 0
     cuda_fisher.launches = 0
     cuda_fisher.launches_full = 0
+    cuda_knn.launches = 0
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -979,7 +1033,8 @@ def run_object_episode(log_dir):
                     blend_bwd=cuda_blend_bwd.launches,
                     blend_bwd_probes=cuda_blend_bwd.launches_probes,
                     fisher=cuda_fisher.launches - cuda_fisher.launches_full,
-                    fisher_nf20=cuda_fisher.launches_full)
+                    fisher_nf20=cuda_fisher.launches_full,
+                    nn1=cuda_knn.launches)
     return result, mapper, wall_s, launches, rec
 
 
@@ -1028,7 +1083,7 @@ def check_object_episode(result, mapper, wall_s, launches, rec):
     if not events or "path_args" not in rec:
         raise AssertionError("no object planning event")
     if min(launches[k] for k in ("blend", "blend_bwd",
-                                 "blend_bwd_probes")) <= 0:
+                                 "blend_bwd_probes", "nn1")) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     if not curve or not np.isfinite(curve).all() or \
             any(b < a for a, b in zip(curve, curve[1:])):
@@ -1231,6 +1286,367 @@ def check_object(mapper, rec, report):
     return out
 
 
+def recon_card_check(est, gt, thresh, surface_fn=None):
+    """The recon metric with its nearest neighbours on the card (the 1-NN
+    kernel from 1e8 pairs up, engine/eval.py::_nn_dists) against the
+    host cKDTree's on the same clouds: both metrics, each one's seconds,
+    the relative differences (rtol 1e-9), and the gt -> est queries whose
+    kernel row differs from cKDTree's (argmin disagreements) and whose
+    recomputed distance differs from cKDTree's."""
+    import torch
+    from scipy.spatial import cKDTree
+    from fisher_nerf_customized_tpu_torch.engine.eval import (
+        _dists_to, accuracy_comp_ratio_from_pcl)
+    from fisher_nerf_customized_tpu_torch.ops import cuda_knn
+    from fisher_nerf_customized_tpu_torch.ops.knn import knn
+    est = np.asarray(est, np.float32)
+    gt = np.asarray(gt, np.float32)
+    n0 = cuda_knn.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = accuracy_comp_ratio_from_pcl(est, gt, thresh,
+                                        surface_dist_fn=surface_fn,
+                                        device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    if cuda_knn.launches == n0:
+        raise AssertionError("the card's recon metric launched no 1-NN "
+                             "kernel")
+    t0 = time.perf_counter()
+    host = accuracy_comp_ratio_from_pcl(est, gt, thresh,
+                                        surface_dist_fn=surface_fn)
+    host_s = time.perf_counter() - t0
+    rel = {k: abs(card[k] - v) / max(abs(v), 1e-300)
+           for k, v in host.items()}
+    ref_d, ref_i = cKDTree(est).query(gt, k=1, workers=-1)
+    _d, idx = knn(torch.as_tensor(gt, device="cuda"),
+                  torch.as_tensor(est, device="cuda"), k=1)
+    idx = idx[:, 0].cpu().numpy()
+    got_d = _dists_to(gt, est, idx)
+    row = dict(n_gt=len(gt), n_est=len(est), card_s=card_s, host_s=host_s,
+               rel_err_max=max(rel.values()),
+               argmin_disagreements=int((idx != ref_i).sum()),
+               dist_disagreements=int((got_d != ref_d).sum()),
+               dist_max_abs_diff=float(np.abs(got_d - ref_d).max()),
+               **{f"card_{k}": v for k, v in card.items()},
+               **{f"host_{k}": v for k, v in host.items()})
+    if max(rel.values()) > 1e-9:
+        raise AssertionError(f"recon on the card {card} off cKDTree's "
+                             f"{host}")
+    return row
+
+
+def nn1_profiler_ms(fn, reps, tries=3):
+    """Device time of one call of fn (both 1-NN kernels, the first pass and
+    the merge) over reps calls, from the profiler's kernel rows, or None
+    when `tries` sessions record none (after other profiler sessions in
+    one process, some record no kernel rows)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if "nn1" in e.key and e.self_device_time_total > 0]
+        if rows:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / reps
+        print(f"  profiler session {attempt + 1} recorded no nn1 kernel")
+    return None
+
+
+def cdist_min(q, r, block=8192):
+    """The library's 1-NN: torch.cdist(q, r).min(1) over query blocks."""
+    import torch
+    out_d, out_i = [], []
+    for q0 in range(0, q.shape[0], block):
+        d, i = torch.cdist(q[q0:q0 + block], r).min(dim=1)
+        out_d.append(d)
+        out_i.append(i)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+def check_nn1(recon_q, recon_r, novelty_q, novelty_r):
+    """The 1-NN kernel against its plain twin on the card, on inputs
+    centred as ops/knn.py::knn centres them: at the recon metric's shape
+    (recon_q: the 1.2 M ground-truth points, recon_r: 80 000 points of the
+    episode's cloud) and at the novelty mask's (65 536 back-projected
+    pixels against the 400 000-point known cloud), then exact ties across
+    tile and split borders with few queries (the refs split over
+    gridDim.y), a mask with NaN and inf in masked rows, and an all-masked
+    cloud.  Distances and rows must equal the twin's to the bit.  Each
+    shape is timed by CUDA events around back-to-back calls (the kernel,
+    its twin and torch.cdist(...).min(1)) beside its bound; a call takes
+    milliseconds, so the host's gaps between launches do not count, and
+    the profiler's device time is reported beside it where it records
+    the kernel."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.ops import cuda_knn
+    from fisher_nerf_customized_tpu_torch.ops.knn import center_inputs
+
+    def same(tag, args):
+        got = cuda_knn.cuda_nn1(*args)
+        ref = cuda_knn.nn1_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            bad = int(((got[0] != ref[0]) | (got[1] != ref[1])).sum())
+            raise AssertionError(f"nn1 {tag}: {bad} queries differ from the "
+                                 f"twin")
+        return got
+
+    rows = []
+    for tag, q, r in (("recon", recon_q, recon_r),
+                      ("novelty", novelty_q, novelty_r)):
+        qc, rc = center_inputs(q, r)
+        got = same(tag, (qc, rc))
+        n_q, n_r = qc.shape[0], rc.shape[0]
+        splits, per = cuda_knn._splits(n_q, n_r)
+        launch = functools.partial(cuda_knn.cuda_nn1, qc, rc)
+        ms = cuda_ms(launch, 5)
+        ms_profiler = nn1_profiler_ms(launch, 5)
+        plain = cuda_ms(lambda: cuda_knn.nn1_plain(qc, rc), 1)
+        lib_d, _lib_i = cdist_min(qc, rc)
+        library = cuda_ms(lambda: cdist_min(qc, rc), 1)
+        n_bytes = (n_q + n_r) * 12 + n_q * 8
+        bms, bby = bound_ms(n_bytes, 9 * n_q * n_r)
+        row = dict(shape=tag, Q=n_q, R=n_r, splits=splits,
+                   refs_per_split=per, max_abs_err=0.0, ms=ms,
+                   ms_profiler=ms_profiler, plain_ms=plain,
+                   library_ms=library,
+                   library_max_abs_diff=float((lib_d - got[0]).abs().max()),
+                   bound_ms=bms, bound_by=bby,
+                   pairs_per_s=n_q * n_r / (ms * 1e-3))
+        rows.append(row)
+        phase("kernel_nn1", **fmt(row))
+        del qc, rc, got, lib_d, _lib_i
+
+    # exact ties: duplicated refs across tile borders and across the split
+    # of the refs over gridDim.y, with few queries (the new -> ground-truth
+    # direction's shape), each query next to a duplicated point
+    r = recon_q[:600_000].clone()
+    q = recon_r[:3000].clone()
+    splits, per = cuda_knn._splits(q.shape[0], r.shape[0])
+    if splits < 2:
+        raise AssertionError(f"the small-Q case did not split: {splits}")
+    src = torch.arange(100, 100 + 64 * 37, 37, device=r.device)
+    r[src + cuda_knn.TILE] = r[src]
+    r[src + per] = r[src]
+    q[:len(src)] = r[src] + 1e-4
+    qc, rc = center_inputs(q, r)
+    got = same("ties", (qc, rc))
+    if not torch.equal(got[1][:len(src)].long(), src):
+        raise AssertionError("nn1 ties: not the lowest row")
+    # a mask, with NaN and inf in masked rows (the wrapper's callers zero
+    # them, the kernel skips them all the same)
+    g = torch.Generator(device=r.device).manual_seed(0)
+    mask = torch.rand(rc.shape[0], generator=g, device=r.device) < 0.5
+    rc_bad = rc.clone()
+    off = torch.nonzero(~mask).flatten()
+    rc_bad[off[:50]] = float("nan")
+    rc_bad[off[50:60]] = float("inf")
+    got_m = same("mask", (qc, rc_bad, mask))
+    keep = torch.nonzero(mask).flatten()
+    sub = cuda_knn.cuda_nn1(qc, rc[keep].contiguous())
+    if not (torch.equal(got_m[0], sub[0])
+            and torch.equal(keep[sub[1].long()], got_m[1].long())):
+        raise AssertionError("nn1 mask: not the 1-NN of the unmasked refs")
+    none = same("all_masked", (qc, rc, torch.zeros_like(mask)))
+    if not (bool(torch.isinf(none[0]).all()) and not bool(none[1].any())):
+        raise AssertionError("nn1 all masked: not (inf, 0)")
+    edge = dict(tie_queries=len(src), tie_splits=splits,
+                tie_refs_per_split=per, masked_refs=int((~mask).sum()))
+    phase("kernel_nn1", **edge)
+    return rows, edge
+
+
+def novelty_card_check(known, frame, inv_k):
+    """The novelty mask of one frame on the card (the 1-NN kernel)
+    against a float64 reference on the CPU: the back-projection and
+    cKDTree's distances in float64.  Equal on every pixel but those within
+    1e-3 m of the 5 cm cut; the min_pixels gate decided the same way."""
+    import torch
+    from scipy.spatial import cKDTree
+    from fisher_nerf_customized_tpu_torch.ops.knn import (
+        novelty_mask_from_pcd_nn)
+    depth, c2w = frame
+    mask, n_novel = novelty_mask_from_pcd_nn(
+        torch.as_tensor(known, device="cuda"), depth.cuda(),
+        torch.as_tensor(inv_k, device="cuda"),
+        torch.as_tensor(c2w, device="cuda"))
+    mask = mask.cpu().numpy()
+    d_np = depth.cpu().numpy().astype(np.float64)
+    h, w = d_np.shape
+    ys, xs = np.mgrid[0:h, 0:w]
+    pix = np.stack([xs, ys, np.ones_like(xs)], -1).astype(np.float64)
+    cam = (pix @ np.asarray(inv_k, np.float64).T) * d_np[..., None]
+    c2w64 = np.asarray(c2w, np.float64)
+    pts = cam @ c2w64[:3, :3].T + c2w64[:3, 3]
+    d, _ = cKDTree(np.asarray(known, np.float64)).query(
+        pts.reshape(-1, 3), workers=-1)
+    novel = ((d > 0.05) & (d_np.reshape(-1) > 0)).reshape(h, w)
+    ref = novel & (novel.sum() >= 20)
+    near = (np.abs(d - 0.05) < 1e-3).reshape(h, w)
+    off = int((mask != ref)[~near].sum())
+    row = dict(novel=int(n_novel), novel_ref=int(novel.sum()),
+               near_cut=int(near.sum()), differ_off_cut=off,
+               differ_near_cut=int((mask != ref)[near].sum()))
+    if off or ((int(n_novel) >= 20) != (int(novel.sum()) >= 20)):
+        raise AssertionError(f"novelty mask off the CPU's: {row}")
+    return row
+
+
+def run_known_env(log_dir):
+    """The port's entry point with --object_scene --known_env on
+    OBJECT_SCENE for KNOWN_ENV_STEPS steps, on the card (no evaluation):
+    (result, mapper, wall seconds, launches by kernel, record).  The
+    record holds the step of the first object detection and three frames
+    (depth on the card, c2w) whose novelty masks are checked after."""
+    import torch
+    from fisher_nerf_customized_tpu_torch import cli
+    from fisher_nerf_customized_tpu_torch.engine import driver
+    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
+                                                      cuda_blend_bwd,
+                                                      cuda_fisher, cuda_knn)
+    args = cli.build_parser().parse_args([
+        "--slam_config", os.path.join(HERE, "configs",
+                                      "mp3d_gaussian_FR_eccv.yaml"),
+        "--scenes_list", OBJECT_SCENE, "--max_steps", str(KNOWN_ENV_STEPS),
+        "--object_scene", "--known_env", "--eval_poses", "0",
+        "--log_dir", log_dir, "--name", "known_env"])
+    cfg = cli.load_config(args)
+    cls = driver.ActiveMapper
+    mask_fn, step_fn = cls._object_mask, cls._object_step
+    rec = dict(found=None, frames=[], calls=0)
+    keep = {0, KNOWN_ENV_STEPS // 2, KNOWN_ENV_STEPS - 1}
+
+    def masking(self, obs):
+        if rec["calls"] in keep:
+            rec["frames"].append((obs["depth"].clone(),
+                                  np.asarray(obs["c2w"], np.float32)))
+        rec["calls"] += 1
+        return mask_fn(self, obs)
+
+    def stepping(self, obs, mask, t):
+        if rec["found"] is None:
+            rec["found"] = int(t)
+        return step_fn(self, obs, mask, t)
+
+    cls._object_mask, cls._object_step = masking, stepping
+    for mod, names in ((cuda_blend, ["launches"]),
+                       (cuda_blend_bwd, ["launches", "launches_probes"]),
+                       (cuda_fisher, ["launches", "launches_full"]),
+                       (cuda_knn, ["launches"])):
+        for name in names:
+            setattr(mod, name, 0)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, mapper = cli.run_scene(args, cfg, OBJECT_SCENE)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        cls._object_mask, cls._object_step = mask_fn, step_fn
+    launches = dict(blend=cuda_blend.launches,
+                    blend_bwd=cuda_blend_bwd.launches,
+                    blend_bwd_probes=cuda_blend_bwd.launches_probes,
+                    fisher=cuda_fisher.launches - cuda_fisher.launches_full,
+                    fisher_nf20=cuda_fisher.launches_full,
+                    nn1=cuda_knn.launches)
+    return result, mapper, wall_s, launches, rec
+
+
+def check_known_env(result, mapper, wall_s, launches, rec):
+    """The known-env episode reached its end, found the object by novelty
+    and launched the 1-NN kernel every step; three of its frames' novelty
+    masks on the card against the CPU.  Returns the phase's row."""
+    timing = result["timing"]
+    row = dict(steps=result["steps"], done_reason=result["done_reason"],
+               wall_s=wall_s, steps_per_s=result["steps"] / wall_s,
+               object_found_at=rec["found"],
+               planning_events=result["planning_events"],
+               object_planning_events=sum(1 for e in mapper.plan_log
+                                          if e.get("object")),
+               known_free_cells=int(mapper.planner._known_free.sum())
+               if mapper.planner._known_free is not None else None,
+               covered_cells=int(mapper.planner.covered.sum())
+               if mapper.planner.covered is not None else None,
+               **{f"launches_{k}": v for k, v in launches.items()})
+    for name in ("object_tracking", "occupancy", "recon_metric",
+                 "obj_recon_metric", "plan.object", "planning",
+                 "tracking_mapping"):
+        if name in timing:
+            row[f"{name.replace('.', '_')}_s"] = timing[name]["total_s"]
+    if result["steps"] != KNOWN_ENV_STEPS:
+        raise AssertionError(f"the known-env episode ended at step "
+                             f"{result['steps']} ({result['done_reason']})")
+    if rec["found"] is None or mapper.obj_slam is None:
+        raise AssertionError("the known-env episode found no object")
+    if launches["nn1"] < KNOWN_ENV_STEPS:
+        raise AssertionError(f"nn1 launched {launches['nn1']} times in "
+                             f"{KNOWN_ENV_STEPS} steps")
+    if min(launches[k] for k in ("blend", "blend_bwd")) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    inv_k = np.linalg.inv(mapper.sim.intrinsics).astype(np.float32)
+    known = np.asarray(mapper.known_env_points, np.float32)
+    masks = [novelty_card_check(known, f, inv_k) for f in rec["frames"]]
+    if len(masks) != 3:
+        raise AssertionError(f"{len(masks)} novelty frames captured")
+    row["novelty_frames"] = masks
+    return row
+
+
+def run_navigation(log_dir):
+    """The port's navigation entry point (cli.run_navigation, as `python
+    -m fisher_nerf_customized_tpu_torch.main_navigation` runs it) on SCENE
+    for NAV_STEPS steps, on the card: its row, the navigator and the
+    1-NN launches; the final recon is held to cKDTree's on the same
+    cloud."""
+    import torch
+    from fisher_nerf_customized_tpu_torch import cli
+    from fisher_nerf_customized_tpu_torch.ops import cuda_knn
+    args = cli.build_parser().parse_args([
+        "--slam_config", os.path.join(HERE, "configs",
+                                      "mp3d_gaussian_FR_eccv.yaml"),
+        "--scenes_list", SCENE, "--max_steps", str(NAV_STEPS),
+        "--log_dir", log_dir, "--name", "navigation"])
+    cfg = cli.load_config(args)
+    cuda_knn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result, nav = cli.run_navigation(args, cfg, SCENE)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = cuda_knn.launches
+    recon = result["recon"]
+    row = dict(steps=result["steps"], done_reason=result["done_reason"],
+               wall_s=wall_s, steps_per_s=result["steps"] / wall_s,
+               auc=result["auc"], launches_nn1=launches,
+               n_points=nav.global_pcl.n_points(),
+               **{f"recon_{k}": v for k, v in recon.items()})
+    if result["steps"] != NAV_STEPS:
+        raise AssertionError(f"the navigation ended at step "
+                             f"{result['steps']} ({result['done_reason']})")
+    if launches <= 0:
+        raise AssertionError("the navigation launched no 1-NN kernel")
+    curve = [s["completeness_ratio"] for s in nav.metrics.steps]
+    if not np.isfinite(list(recon.values())).all() or \
+            any(b < a for a, b in zip(curve, curve[1:])):
+        raise AssertionError(f"navigation recon {recon}, curve {curve}")
+    check = recon_card_check(nav.global_pcl.get(), cli._sample_gt(nav.scene),
+                             0.05, nav.scene.surface_distance)
+    for k, v in recon.items():
+        if abs(v - check[f"card_{k}"]) > 1e-9 * max(abs(v), 1e-300):
+            raise AssertionError(f"navigation recon {recon} off the "
+                                 f"one-shot check {check}")
+    row.update(completeness_curve=curve,
+               **{f"check_{k}": v for k, v in check.items()
+                  if not k.startswith("card_") or k == "card_s"})
+    return row, nav
+
+
 def device_ms_and_launches(fn):
     """Device time (ms, the profiler's kernel rows) and kernel launches of
     one call of fn, after a warm-up call."""
@@ -1391,6 +1807,55 @@ def main(argv=None):
         report["object_check"] = check_object(o_mapper, o_rec, report)
         phase("object_check", **fmt(report["object_check"]))
         del o_rec
+
+        # ---- the recon metric on the card (the 1-NN kernel) against the
+        # host cKDTree on the same clouds: the episode's and the object
+        # episode's scene clouds, and the object's own cloud (1 cm)
+        rc = report["recon_check"] = {}
+        for tag, res, m in (("episode", result, mapper),
+                            ("object_episode", o_result, o_mapper)):
+            row = recon_card_check(m.global_pcl.get(), m._inc_recon.gt, 0.05,
+                                   m.scene.surface_distance)
+            tm = res["timing"]["recon_metric"]
+            row.update(recon_metric_updates=tm["count"],
+                       recon_metric_s_per_update=tm["total_s"] / tm["count"])
+            # the running metric of the episode (the card's nearest
+            # neighbours, update by update) against the host's one-shot
+            for k, v in res["recon"].items():
+                ref = row[f"host_{k}"]
+                if abs(v - ref) > 1e-9 * max(abs(ref), 1e-300):
+                    raise AssertionError(f"{tag}: running recon "
+                                         f"{res['recon']} off cKDTree's")
+            rc[tag] = row
+            phase("recon_check", path=tag, **fmt(row))
+        obj = o_mapper.sim.dynamic_object
+        rc["object"] = recon_card_check(
+            o_mapper.global_obj_pcl,
+            obj.sample_surface_points(20000, frame="object"), 0.01)
+        phase("recon_check", path="object", **fmt(rc["object"]))
+
+        # ---- the known-environment episode and the frontier-only
+        # navigation, each through its entry point
+        k_result, k_mapper, k_wall, k_launches, k_rec = run_known_env(
+            os.path.join(HERE, "experiments", "chip_smoke"))
+        k_row = check_known_env(k_result, k_mapper, k_wall, k_launches, k_rec)
+        report["known_env"] = dict(k_row, timing=k_result["timing"])
+        phase("known_env", **fmt({k: v for k, v in k_row.items()
+                                  if not isinstance(v, list)}))
+        for m in k_row["novelty_frames"]:
+            phase("novelty", **fmt(m))
+        for name in ("tracking_mapping", "object_tracking", "occupancy",
+                     "recon_metric", "obj_recon_metric", "plan.object",
+                     "planning", "pcl"):
+            if name in k_result["timing"]:
+                print(f"  timer {name}: {k_result['timing'][name]}")
+        nav_row, _nav = run_navigation(
+            os.path.join(HERE, "experiments", "chip_smoke"))
+        report["navigation"] = nav_row
+        phase("navigation", **fmt({k: v for k, v in nav_row.items()
+                                   if not isinstance(v, list)}))
+        print(f"  navigation curve: {nav_row['completeness_curve']}")
+        del _nav
 
     # ---- slice (the map-query path)
     if not opts.kernels_only:
@@ -1784,7 +2249,45 @@ def main(argv=None):
         bound_ms=main_fisher["bound_ms"], bound_by=main_fisher["bound_by"],
         library_ms=None)
     report["kernel_fisher"] = fisher_rows
-    del probe, probe_sim, packed, got, ref, params, prep, means_cam
+
+    # ---- kernel_nn1: on the episode's ground truth and cloud and on a
+    # known-env frame (with --kernels-only, the same shapes from the
+    # scene's ground truth, a noisy sample of it and the probe's frame)
+    from fisher_nerf_customized_tpu_torch import cli as tcli
+    from fisher_nerf_customized_tpu_torch.ops.knn import backproject_world
+    if opts.kernels_only:
+        from fisher_nerf_customized_tpu_torch.envs.fake_sim import BoxScene
+        scene = BoxScene.multi_room(seed=SCENE_SEED)
+        gt_np = tcli._sample_gt(scene)
+        rng = np.random.default_rng(1)
+        est_np = (scene.sample_surface_points(80000, rng=rng)
+                  + rng.normal(0, 0.02, (80000, 3))).astype(np.float32)
+        known_np = tcli.known_env_points(scene)
+        obs = probe_sim.get_observations()
+        frame = (obs["depth"], np.asarray(obs["c2w"], np.float32))
+        inv_k = np.linalg.inv(probe_sim.intrinsics).astype(np.float32)
+    else:
+        gt_np = mapper._inc_recon.gt
+        est_np = mapper.global_pcl.get()[:80000]
+        known_np = np.asarray(k_mapper.known_env_points, np.float32)
+        frame = k_rec["frames"][0]
+        inv_k = np.linalg.inv(k_mapper.sim.intrinsics).astype(np.float32)
+    nov_q = backproject_world(frame[0].to(dev), torch.as_tensor(inv_k),
+                              torch.as_tensor(frame[1]))
+    nn1_rows, nn1_edge = check_nn1(
+        torch.as_tensor(gt_np, device=dev),
+        torch.as_tensor(np.asarray(est_np, np.float32), device=dev),
+        nov_q, torch.as_tensor(known_np, device=dev))
+    report["kernel_nn1"] = dict(rows=nn1_rows, edge=nn1_edge)
+    main_nn1 = nn1_rows[0]          # the recon metric's shape
+    entries["nn1"] = dict(
+        name="nn1", route="cuda",
+        source="fisher_nerf_customized_tpu_torch/csrc/nn1.cu",
+        replaces="fisher_nerf_customized_tpu/ops/knn.py:21",
+        max_abs_err=0.0, ms=main_nn1["ms"], plain_ms=main_nn1["plain_ms"],
+        bound_ms=main_nn1["bound_ms"], bound_by=main_nn1["bound_by"],
+        library_ms=main_nn1["library_ms"])
+    del probe, probe_sim, packed, got, ref, params, prep, means_cam, nov_q
     if opts.kernels_only:
         if opts.json:
             write_json(opts.json, report)
@@ -1882,7 +2385,12 @@ def main(argv=None):
 
     # ---- kernels ----------------------------------------------------------
     launches_of = dict(ep_launches,
-                       blend_bwd_probes=o_launches["blend_bwd_probes"])
+                       blend_bwd_probes=o_launches["blend_bwd_probes"],
+                       nn1=k_launches["nn1"])
+    report["nn1_launches"] = dict(episode=ep_launches["nn1"],
+                                  object_episode=o_launches["nn1"],
+                                  known_env=k_launches["nn1"],
+                                  navigation=nav_row["launches_nn1"])
     for name, e in entries.items():
         e["launches"] = launches_of[name]
         phase("kernels", name=name, launches=e["launches"],

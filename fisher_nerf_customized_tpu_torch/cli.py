@@ -22,10 +22,20 @@ recon_metrics.yaml, metrics_curve.yaml, eval.json,
 a navigable point drawn from the scene's seed where that is not
 navigable, and runs the object branch (cfg.criterion: fisher, topt or
 dopt); `--dynamic_scene` makes it random-walk; the object's curve goes
-to object_metrics_curve.yaml.
+to object_metrics_curve.yaml.  `--known_env` runs the known-environment
+mode: the planner's map is seeded from 400 000 points of the scene's
+surfaces without the object, and the episode plans by coverage; with
+`--object_scene` the object is found by novelty against that cloud
+(pixels more than 5 cm from it) instead of by its semantic label.
+
+The frontier-only pipeline (no Gaussian map, FBE goals, the planner's
+paths): `python -m fisher_nerf_customized_tpu_torch.main_navigation`
+with the same flags (main_navigation below); it writes
+pointcloud/global_pcl_<steps>.ply and result.json.
+
 Not ported yet (ROADMAP.md), and so raising NotImplementedError: `--sim
-habitat`, `--known_env`, `--lpips_weights`, `--dino_gate`,
-`--dino_weights` and `--ensemble_dir`.
+habitat`, `--lpips_weights`, `--dino_gate`, `--dino_weights` and
+`--ensemble_dir`.
 """
 from __future__ import annotations
 
@@ -88,7 +98,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _check_ported(args):
     unported = [(args.sim != "fake", f"--sim {args.sim}"),
-                (args.known_env, "--known_env"),
                 (args.lpips_weights is not None, "--lpips_weights"),
                 (args.dino_gate or args.dino_weights is not None,
                  "The DINO gate (--dino_gate, --dino_weights)"),
@@ -185,6 +194,15 @@ def make_sim(args, cfg, scene_id: str):
     return sim, scene
 
 
+def known_env_points(scene):
+    """The known environment's cloud: 400 000 points of the scene's room
+    shells and obstacles, without the object."""
+    from .envs.fake_sim import BoxScene
+    empty = BoxScene(room_lo=scene.room_lo, room_hi=scene.room_hi,
+                     obstacles=scene.obstacles)
+    return empty.sample_surface_points(400000)
+
+
 def run_scene(args, cfg, scene_id: str):
     """One episode on one scene: (result dict, the ActiveMapper).  With
     --resume and --checkpoint the episode continues from its checkpoint.
@@ -198,6 +216,8 @@ def run_scene(args, cfg, scene_id: str):
                           seed=args.seed, scene_id=scene_id,
                           object_scene=args.object_scene,
                           dynamic_scene=args.dynamic_scene,
+                          known_env_points=(known_env_points(scene)
+                                            if args.known_env else None),
                           device=args.device)
     if args.resume and args.checkpoint:
         mapper.resume(args.checkpoint)
@@ -223,6 +243,37 @@ def main(argv=None):
     results = {}
     for scene_id in args.scenes_list:
         result, _mapper = run_scene(args, cfg, scene_id)
+        results[scene_id] = result
+        print(json.dumps({scene_id: result}, default=float), flush=True)
+    return results
+
+
+def run_navigation(args, cfg, scene_id: str):
+    """One frontier-only episode (engine/navigator.py) on one scene:
+    (result dict, the FrontierNavigator).  Writes, under
+    <log_dir>/<name>/<scene_id>/, pointcloud/global_pcl_<steps>.ply and
+    result.json."""
+    from .engine.navigator import FrontierNavigator
+    sim, scene = make_sim(args, cfg, scene_id)
+    eval_dir = os.path.join(cfg.workdir, cfg.run_name, scene_id)
+    nav = FrontierNavigator(cfg, sim, scene=scene, eval_dir=eval_dir,
+                            seed=args.seed, device=args.device)
+    result = nav.frontier_test_navigation(recon_gt_points=_sample_gt(scene))
+    nav.global_pcl.save_ply(os.path.join(
+        eval_dir, "pointcloud", f"global_pcl_{result['steps']}.ply"))
+    with open(os.path.join(eval_dir, "result.json"), "w") as f:
+        json.dump(result, f, indent=2, default=float)
+    return result, nav
+
+
+def main_navigation(argv=None):
+    """The frontier-only pipeline, one JSON line per scene."""
+    args = build_parser().parse_args(argv)
+    _check_ported(args)
+    cfg = load_config(args)
+    results = {}
+    for scene_id in args.scenes_list:
+        result, _nav = run_navigation(args, cfg, scene_id)
         results[scene_id] = result
         print(json.dumps({scene_id: result}, default=float), flush=True)
     return results

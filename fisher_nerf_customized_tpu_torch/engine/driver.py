@@ -44,10 +44,23 @@ Checkpoints carry the object cloud, the object's cells of the map view
 and object_metrics_curve.yaml, as the JAX package's do (not the object
 SLAM, which, as there, starts anew at the next detection).
 
-Not ported yet (ROADMAP.md): the known-environment novelty mask, UPEN,
-the DINO gate, the cluster manager, pipelined planning,
-`explore.prune_invisible` and the navigation images; a config that turns
-one of them on raises NotImplementedError.
+Known-environment mode (`known_env_points`, a ground-truth cloud of the
+scene without the object): the planner's map is seeded from the cloud
+(AstarPlanner.init_known_env), each step marks the camera's field of view
+as covered, and the frontier is the free space not yet covered.  On the
+object branch the object mask is then the novelty mask: the pixels more
+than 5 cm from the cloud (ops/knn.py::novelty_mask_from_pcd_nn, the 1-NN
+kernel on the card, the cloud uploaded once).  As in the JAX package the
+coverage is not checkpointed: a resumed known-env episode plans from the
+unknown cells of its restored map.
+
+The reconstruction metrics find their nearest neighbours on the mapper's
+device (engine/eval.py::_nn_dists: the 1-NN kernel on the card from 1e8
+pairs up, cKDTree below that and on the CPU).
+
+Not ported yet (ROADMAP.md): UPEN, the DINO gate, the cluster manager,
+pipelined planning, `explore.prune_invisible` and the navigation images;
+a config that turns one of them on raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -109,7 +122,7 @@ class ActiveMapper:
                  eval_dir: str | None = None, seed: int = 0,
                  traj_actions=None, scene_id: str | None = None,
                  object_scene: bool = False, dynamic_scene: bool = False,
-                 device="cuda"):
+                 known_env_points=None, device="cuda"):
         self.cfg = cfg
         self.sim = sim
         self.scene = scene                    # BoxScene (GT access) or None
@@ -123,6 +136,8 @@ class ActiveMapper:
         self.device = device
         self.object_scene = bool(object_scene)
         self.dynamic_scene = bool(dynamic_scene)
+        self.known_env_points = known_env_points  # the known scene's cloud
+        self._known_env_dev = None                # its device copy, once
         self.obj_slam = None
         self.object_tracking = False
         self.criterion = str(cfg.criterion)
@@ -172,7 +187,12 @@ class ActiveMapper:
         c2w = obs["c2w"]
         self.slam.init(obs["rgb"], obs["depth"], np.linalg.inv(c2w))
         img_size = (self.slam.camera.height, self.slam.camera.width)
-        self.planner.init(c2w, self.sim.intrinsics, img_size=img_size)
+        if self.known_env_points is not None:
+            self.planner.init_known_env(c2w, self.known_env_points,
+                                        intrinsic=self.sim.intrinsics,
+                                        img_size=img_size)
+        else:
+            self.planner.init(c2w, self.sim.intrinsics, img_size=img_size)
         self.planner.update_occ_map(obs["depth"], c2w, 0)
         self._make_habvis()
         # init scan: 90 degrees of turn-left steps
@@ -195,11 +215,29 @@ class ActiveMapper:
 
     # -- object branch ------------------------------------------------------
     def _object_mask(self, obs):
-        """The object's pixels, (H, W) bool numpy: the spawned object's
-        semantic id (a real semantic sensor labels every pixel with an
-        instance id), else any nonzero label; None off the object branch
-        or without a semantic channel."""
-        if not self.object_scene or "semantic" not in obs:
+        """The object's pixels, (H, W) bool numpy: in known-environment
+        mode the novelty mask against the known cloud; else the spawned
+        object's semantic id (a real semantic sensor labels every pixel
+        with an instance id), else any nonzero label; None off the object
+        branch or without a semantic channel."""
+        if not self.object_scene:
+            return None
+        if self.known_env_points is not None:
+            from ..ops.knn import novelty_mask_from_pcd_nn
+            dev = self.device
+            if self._known_env_dev is None:
+                self._known_env_dev = torch.as_tensor(
+                    np.asarray(self.known_env_points, np.float32),
+                    device=dev)
+            inv_k = np.linalg.inv(self.sim.intrinsics).astype(np.float32)
+            depth = torch.as_tensor(obs["depth"], device=dev)
+            mask, _n = novelty_mask_from_pcd_nn(
+                self._known_env_dev, depth.reshape(depth.shape[-2:]),
+                torch.as_tensor(inv_k, device=dev),
+                torch.as_tensor(np.asarray(obs["c2w"], np.float32),
+                                device=dev))
+            return mask.cpu().numpy()
+        if "semantic" not in obs:
             return None
         sem = np.asarray(obs["semantic"])
         obj = getattr(self.sim, "dynamic_object", None)
@@ -278,7 +316,8 @@ class ActiveMapper:
             if self.obj_slam is None or self.obj_slam.n_active == 0:
                 return None
             est = self.obj_slam.gaussian_points
-        m = accuracy_comp_ratio_from_pcl(est, gt_object_points, dist_thresh)
+        m = accuracy_comp_ratio_from_pcl(est, gt_object_points, dist_thresh,
+                                         device=self.device)
         self.object_metrics.record(t, **m)
         return m
 
@@ -452,6 +491,8 @@ class ActiveMapper:
                     self._object_step(obs, obj_mask, t)
             with self.timer.phase("occupancy"):
                 self.planner.update_occ_map(obs["depth"], c2w, t)
+                if self.planner.covered is not None:
+                    self.planner.cover_fov_2d(c2w)
             with self.timer.phase("pcl"):
                 self.global_pcl.add_frame(obs["depth"], self.sim.intrinsics,
                                           c2w, color=obs["rgb"])
@@ -594,7 +635,7 @@ class ActiveMapper:
                 result["recon"] = accuracy_comp_ratio_from_pcl(
                     self.global_pcl.get(), recon_gt_points, 0.05,
                     surface_dist_fn=getattr(self.scene, "surface_distance",
-                                            None))
+                                            None), device=self.device)
             result["auc"] = self.metrics.auc()
         if self.metrics.steps:
             self.metrics.dump(os.path.join(self.eval_dir,
@@ -612,7 +653,7 @@ class ActiveMapper:
             self._inc_recon = IncrementalReconMetric(
                 recon_gt_points, 0.05,
                 surface_dist_fn=getattr(self.scene, "surface_distance",
-                                        None))
+                                        None), device=self.device)
             if self._inc_recon_saved is not None:
                 if self._inc_recon.load_state_dict(self._inc_recon_saved):
                     self._pcl_skip = self._inc_recon.n_est

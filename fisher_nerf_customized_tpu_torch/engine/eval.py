@@ -10,8 +10,10 @@ and AUC curves.  The JAX package's engine/eval.py.
   reconstruction   accuracy, completion, completeness ratio and FPR of the
                    estimated cloud against a ground-truth cloud at 5 cm
                    (accuracy_comp_ratio_from_pcl, and its exact running
-                   form IncrementalReconMetric), with scipy's cKDTree for
-                   the nearest neighbours;
+                   form IncrementalReconMetric); the nearest neighbours
+                   of a query of 1e8 pairs or more on a CUDA device come
+                   from the 1-NN kernel (ops/knn.py), the others from
+                   scipy's cKDTree;
   curves           MetricsRecorder (the metric YAML) and trapezoid_auc.
 
 lpips_proxy is a perceptual distance from three seeded random conv layers
@@ -413,12 +415,43 @@ def evaluate_ate(gt_poses: np.ndarray, est_poses: np.ndarray) -> float:
 # 3D reconstruction metrics
 # ---------------------------------------------------------------------------
 
-def _nn_dists(queries: np.ndarray, refs: np.ndarray) -> np.ndarray:
-    """Distance from each query to its nearest reference point (float64),
-    by scipy's cKDTree on every core (the answers do not depend on the
-    worker count)."""
-    d, _ = cKDTree(refs).query(queries, k=1, workers=-1)
-    return d
+NN_DEVICE_PAIRS = 1e8     # queries x refs from which the card takes the NN
+
+
+def _nn_dists(queries: np.ndarray, refs: np.ndarray, device=None,
+              queries_dev=None, refs_dev=None) -> np.ndarray:
+    """Distance from each query to its nearest reference point (float64).
+
+    On a CUDA `device`, with queries x refs >= NN_DEVICE_PAIRS, the 1-NN
+    kernel (ops/knn.py) finds each query's nearest reference in float32,
+    and its distance is then recomputed in float64 from the inputs as
+    given, as cKDTree computes it: where the two agree on the nearest
+    point, the distance is cKDTree's to the bit.  queries_dev / refs_dev
+    are float32 copies of the inputs already on that device (a fixed
+    ground-truth cloud is uploaded once).  Otherwise scipy's cKDTree on
+    every core (the answers do not depend on the worker count)."""
+    dev = None if device is None else torch.device(device)
+    if dev is None or dev.type != "cuda" or \
+            len(queries) * len(refs) < NN_DEVICE_PAIRS:
+        d, _ = cKDTree(refs).query(queries, k=1, workers=-1)
+        return d
+    from ..ops.knn import knn
+    if queries_dev is None:
+        queries_dev = torch.as_tensor(np.asarray(queries, np.float32),
+                                      device=dev)
+    if refs_dev is None:
+        refs_dev = torch.as_tensor(np.asarray(refs, np.float32), device=dev)
+    _d, idx = knn(queries_dev, refs_dev, k=1)
+    return _dists_to(queries, refs, idx[:, 0].cpu().numpy())
+
+
+def _dists_to(queries, refs, idx) -> np.ndarray:
+    """|queries - refs[idx]| in float64, summed as cKDTree sums it:
+    (dx*dx + dy*dy) + dz*dz."""
+    diff = np.asarray(queries, np.float64) - np.asarray(refs,
+                                                        np.float64)[idx]
+    return np.sqrt((diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1])
+                   + diff[:, 2] * diff[:, 2])
 
 
 def _chunked_surface_dists(fn, pts, chunk: int = 200_000) -> np.ndarray:
@@ -431,12 +464,14 @@ def _chunked_surface_dists(fn, pts, chunk: int = 200_000) -> np.ndarray:
 
 def accuracy_comp_ratio_from_pcl(est_pts: np.ndarray, gt_pts: np.ndarray,
                                  dist_thresh: float = 0.05,
-                                 surface_dist_fn=None) -> dict:
+                                 surface_dist_fn=None, device=None,
+                                 gt_dev=None) -> dict:
     """accuracy = mean est->gt distance, completion = mean gt->est
     distance, completeness ratio = % of gt within dist_thresh of est,
     FPR = % of est beyond dist_thresh of gt.  With
     `surface_dist_fn(pts) -> (N,)` exact surface distances replace the
-    est->gt nearest neighbours (accuracy and FPR)."""
+    est->gt nearest neighbours (accuracy and FPR).  `device` and `gt_dev`
+    (a float32 copy of gt on it): see _nn_dists."""
     est = np.asarray(est_pts, np.float64)
     gt = np.asarray(gt_pts, np.float64)
     if len(est) == 0 or len(gt) == 0:
@@ -444,8 +479,8 @@ def accuracy_comp_ratio_from_pcl(est_pts: np.ndarray, gt_pts: np.ndarray,
                     completeness_ratio=0.0, fpr=1.0)
     d_e2g = (_chunked_surface_dists(surface_dist_fn, est)
              if surface_dist_fn is not None
-             else _nn_dists(est, gt))
-    d_g2e = _nn_dists(gt, est)
+             else _nn_dists(est, gt, device, refs_dev=gt_dev))
+    d_g2e = _nn_dists(gt, est, device, queries_dev=gt_dev)
     return dict(
         acc_distance=float(d_e2g.mean()),
         comp_distance=float(d_g2e.mean()),
@@ -460,13 +495,19 @@ class IncrementalReconMetric:
     and FPR are sums over the estimated points of their own (fixed)
     distances, and the gt->est distances are a running minimum.  An
     update costs new points x gt, and the result is the one-shot
-    metric's on the whole cloud."""
+    metric's on the whole cloud.  On a CUDA `device` the ground-truth
+    cloud is uploaded once and the nearest neighbours go through
+    _nn_dists' kernel path."""
 
     def __init__(self, gt_pts, dist_thresh: float = 0.05,
-                 surface_dist_fn=None):
+                 surface_dist_fn=None, device=None):
         self.gt = np.asarray(gt_pts, np.float32)
         self.thresh = float(dist_thresh)
         self.surface_dist_fn = surface_dist_fn
+        self.device = device
+        self.gt_dev = None
+        if device is not None and torch.device(device).type == "cuda":
+            self.gt_dev = torch.as_tensor(self.gt, device=device)
         self.d_gt_min = np.full(len(self.gt), np.inf)
         self.acc_sum = 0.0
         self.acc_in = 0
@@ -498,12 +539,13 @@ class IncrementalReconMetric:
         if len(new_est):
             d_e2g = (_chunked_surface_dists(self.surface_dist_fn, new_est)
                      if self.surface_dist_fn is not None
-                     else _nn_dists(new_est, self.gt))
+                     else _nn_dists(new_est, self.gt, self.device,
+                                    refs_dev=self.gt_dev))
             self.acc_sum += float(d_e2g.sum())
             self.acc_in += int((d_e2g < self.thresh).sum())
             self.n_est += len(new_est)
-            self.d_gt_min = np.minimum(self.d_gt_min,
-                                       _nn_dists(self.gt, new_est))
+            self.d_gt_min = np.minimum(self.d_gt_min, _nn_dists(
+                self.gt, new_est, self.device, queries_dev=self.gt_dev))
         if self.n_est == 0:
             return dict(acc_distance=float("inf"),
                         comp_distance=float("inf"),

@@ -1,19 +1,27 @@
 """AstarPlanner: occupancy mapping, frontier exploration, path planning.
 
 Counterpart of the JAX package's planning/planner.py (the reference
-AstarPlanner's API): init / update_occ_map / build_frontiers /
-setup_start / planning / global_planning / global_object_planning /
-add_obstacle / convert_to_map / convert_to_world / pose_eval (a uniform
-stub) / save / load.  The
+AstarPlanner's API): init / init_known_env / update_occ_map /
+cover_fov_2d / build_frontier_cells / build_frontiers / setup_start /
+planning / global_planning / global_planning_frontier /
+global_object_planning / add_obstacle / convert_to_map /
+convert_to_world / pose_eval (a uniform stub) / save / load.  The
 (3, Gz, Gx) occupancy map stays on the planner's device and takes one
 vote update per frame (planning/occupancy.py); a planning event pulls its
 uint8 label map once and runs the morphology, connected components and
 distance transform on the host (utils/raster.py, cv2's cells without
-cv2), then one device sweep field serves every goal (planning/sweep.py).
+cv2), then one device sweep field serves every goal (planning/sweep.py),
+or, with `explore.planner_backend: astar`, the host A* search
+(planning/astar.py::AstarSearch) does.
 
-Not ported yet (ROADMAP.md): the host A* backend
-(`explore.planner_backend: astar`), known-environment mode
-(init_known_env, cover_fov_2d), render_bev and the planning PNGs.
+Known-environment mode (init_known_env): the map is seeded from a
+ground-truth cloud, each frame marks the free cells of the camera's
+field of view as covered (cover_fov_2d), and the frontier is the free
+space not yet covered.  As in the JAX package, the coverage mask is not
+checkpointed: a planner restored by load() has none, and plans from
+the unknown cells of its map.
+
+Not ported yet (ROADMAP.md): render_bev and the planning PNGs.
 """
 from __future__ import annotations
 
@@ -24,11 +32,9 @@ from ..ops.camera import Camera
 from ..utils import raster
 from .candidates import (generate_candidates, generate_candidates_object,
                          generate_random_gaussians, sample_random_candidates)
+from .astar import AstarSearch
 from .occupancy import occ_update
 from .sweep import SweepSearch
-
-_NOT_PORTED = ("{} is not ported to the PyTorch package yet (ROADMAP.md, "
-               "queue 1)")
 
 
 class LocalizationError(RuntimeError):
@@ -73,10 +79,6 @@ class AstarPlanner:
         self.frontier_select_method = str(ex["frontier_select_method"])
         self.shortcut_path = bool(ex["shortcut_path"])
         self.planner_backend = str(ex.get("planner_backend", "sweep"))
-        if self.planner_backend != "sweep":
-            raise NotImplementedError(_NOT_PORTED.format(
-                f"explore.planner_backend {self.planner_backend!r} (the host "
-                f"A* search)"))
         # C-space clearance: inflate observed obstacles by the agent radius
         # (clearance_m < 0 = auto from the simulator's agent radius through
         # set_clearance; 0 = off)
@@ -99,6 +101,8 @@ class AstarPlanner:
         self._search = None
         self._search_key = None
         self._occ_idx_cache = None
+        self.covered = None          # known-env coverage (init_known_env)
+        self._known_free = None
         self.camera: Camera | None = None
 
     # -- lifecycle ----------------------------------------------------------
@@ -134,7 +138,112 @@ class AstarPlanner:
         self.occ_map = torch.as_tensor(occ, device=self.device)
         self._occ_idx_cache = None
         self._search_key = None
+        self.covered = None
         self.frame_idx = 0
+
+    def init_known_env(self, pose, env_pcd_world, intrinsic=None,
+                       img_size: tuple[int, int] = (256, 256),
+                       max_lines: int = 20000, seed: int = 0):
+        """Known-environment init: the occupancy map seeded from a
+        ground-truth cloud instead of exploration, and an empty coverage
+        mask for cover_fov_2d.  Occupied votes: the cloud's points in the
+        height band, counted per cell; free votes: the cells of lines from
+        (at most max_lines, drawn by seed) occupied cells to the robot's
+        cell."""
+        pose = np.asarray(pose, np.float64)
+        self.cam_height = float(pose[1, 3])
+        if intrinsic is not None:
+            self.camera = camera_from_intrinsics(np.asarray(intrinsic),
+                                                 img_size[1], img_size[0])
+        self.grid_dim = np.array([768, 768])
+        self.map_center = np.asarray(pose[[0, 2], 3], np.float32)
+        self._map_center_dev = torch.as_tensor(self.map_center,
+                                               device=self.device)
+        h, w = int(self.grid_dim[1]), int(self.grid_dim[0])
+
+        occ = np.zeros((3, h, w), np.float32)
+        occ[0] = 1.0
+        cx = int((pose[0, 3] - self.map_center[0]) / self.cell_size + w // 2)
+        cz = int((pose[2, 3] - self.map_center[1]) / self.cell_size + h // 2)
+        self.cam_pos = np.array([cz, cx])
+        occ[2, cz - 1:cz + 2, cx - 1:cx + 2] = 2.0
+
+        pc = np.asarray(env_pcd_world, np.float32)
+        sel = (pc[:, 1] >= self.height_lower) & \
+            (pc[:, 1] <= self.height_upper)
+        pts = pc[sel]
+        vote = np.zeros((3, h, w), np.float32)
+        if len(pts):
+            gx, gz = self._discretize(pts[:, 0], pts[:, 2])
+            flat = gz * w + gx
+            uniq, counts = np.unique(flat, return_counts=True)
+            grid = np.zeros((h * w,), np.float32)
+            grid[uniq] = counts + 1e-5
+            vote[1] = 0.01 * grid.reshape(h, w)
+            occ_z, occ_x = uniq // w, uniq % w
+            if len(occ_z) > max_lines:
+                idx = np.random.default_rng(seed).choice(
+                    len(occ_z), size=max_lines, replace=False)
+                occ_z, occ_x = occ_z[idx], occ_x[idx]
+            canvas = raster.draw_lines((h, w), np.stack([occ_x, occ_z], 1),
+                                       (cx, cz))
+            vote[2][canvas > 0] += 1.0
+            vote[2][occ_z, occ_x] = 0.0        # the end stays occupied
+            denom = vote.sum(axis=0, keepdims=True) + 1e-5
+            occ += vote / denom
+        self.occ_map = torch.as_tensor(occ, device=self.device)
+        self._occ_idx_cache = None
+        self._search_key = None
+        self.covered = np.zeros((h, w), bool)
+        # the known map does not change: its free cells stay on the host
+        # for the per-step coverage probes
+        self._known_free = occ.argmax(axis=0) == 2
+        self.frame_idx = 0
+
+    def cover_fov_2d(self, c2w, fov_deg: float = 90.0,
+                     max_range: float = 4.0, ang_step_deg: float = 2.0):
+        """Mark the free cells visible in the camera's field-of-view wedge
+        as covered: per angle, walk the ray until a cell that is not free
+        stops it."""
+        assert self.covered is not None, "call init_known_env first"
+        free = self._known_free
+        h, w = free.shape
+        c2w = np.asarray(c2w, np.float64)
+        x, z = float(c2w[0, 3]), float(c2w[2, 3])
+        gx = int((x - self.map_center[0]) / self.cell_size + w // 2)
+        gz = int((z - self.map_center[1]) / self.cell_size + h // 2)
+        if not (0 <= gx < w and 0 <= gz < h):
+            return
+        fwd = c2w[:3, :3] @ np.array([0.0, 0.0, 1.0])
+        yaw = np.arctan2(fwd[2], fwd[0])       # the angle in the xz plane
+        half = np.deg2rad(fov_deg) / 2
+        n_cells = int(max_range / self.cell_size)
+        for a in np.arange(-half, half + 1e-6, np.deg2rad(ang_step_deg)):
+            ca, sa = np.cos(yaw + a), np.sin(yaw + a)
+            for r in range(n_cells):
+                # round half to even, as Python's round of a float64
+                i = int(round(gx + r * ca))
+                j = int(round(gz + r * sa))
+                if not (0 <= i < w and 0 <= j < h):
+                    break
+                if free[j, i]:
+                    self.covered[j, i] = True
+                else:
+                    break
+
+    def build_frontier_cells(self) -> np.ndarray:
+        """The coverage frontier: free, not covered, and 4-adjacent to a
+        covered cell.  Returns (M, 2) [j, i] cells."""
+        assert self.covered is not None, "call init_known_env first"
+        free = self._known_free
+        cov = self.covered
+        adj = np.zeros_like(cov)
+        adj[:-1] |= cov[1:]
+        adj[1:] |= cov[:-1]
+        adj[:, :-1] |= cov[:, 1:]
+        adj[:, 1:] |= cov[:, :-1]
+        fr = (~cov) & free & adj
+        return np.stack(np.where(fr), axis=1)
 
     def update_occ_map(self, depth, c2w, t: int):
         self.frame_idx = int(t)
@@ -217,9 +326,18 @@ class AstarPlanner:
         Returns (frontier_points, free_space); frontier_points is None
         when exploration is exhausted."""
         free_space = self.build_connected_freespace(gaussian_points)
-        unknown = (self._occ_index_np() == 0)
-        boundary = raster.dilate3(free_space) - free_space
-        frontier = np.bitwise_and(boundary.astype(bool), unknown)
+        if self.covered is not None:
+            # known-env mode: the map is complete, so the free space not
+            # yet covered takes the place of the unknown cells
+            cells = self.build_frontier_cells()
+            frontier = np.zeros(free_space.shape, bool)
+            if len(cells):
+                frontier[cells[:, 0], cells[:, 1]] = True
+            frontier &= free_space.astype(bool)
+        else:
+            unknown = (self._occ_index_np() == 0)
+            boundary = raster.dilate3(free_space) - free_space
+            frontier = np.bitwise_and(boundary.astype(bool), unknown)
         self.frontier = frontier.astype(np.uint8)
         if frontier.sum() == 0:
             self.target_frontier = None
@@ -344,8 +462,12 @@ class AstarPlanner:
         binarymap[y, x] = 0
         self.occ_map_np = binarymap
         self.free_space_np = free
-        self._search = SweepSearch(self.occ_map_np, self.free_space_np,
-                                   self.start, device=self.device)
+        if self.planner_backend == "sweep":
+            self._search = SweepSearch(self.occ_map_np, self.free_space_np,
+                                       self.start, device=self.device)
+        else:
+            self._search = AstarSearch(self.occ_map_np, self.free_space_np,
+                                       self.start)
         self._search_key = key
 
     def add_obstacle(self, world_xy):
@@ -475,6 +597,14 @@ class AstarPlanner:
         if defer_scores:
             return finish
         return finish()
+
+    def global_planning_frontier(self, expansion=1, agent_pose=None):
+        """The frontier-only (FBE) goal, no scoring: (goal (1, 2) world xz,
+        free space), or (None, None) when exploration is exhausted."""
+        candidate_pos, free_space = self.build_frontiers(None)
+        if candidate_pos is None:
+            return None, None
+        return np.asarray(candidate_pos), free_space
 
     def _free_cells(self, xz, free_space) -> np.ndarray:
         """Which world xz points (M, 2) fall on a cell of the eroded free

@@ -14,6 +14,8 @@ here on numpy and scipy.ndimage, written to give cv2's cells exactly:
   label8                     connectedComponents(WithStats), 8-connected,
                              with cv2's label numbers (see its docstring);
   distance_l1                distanceTransform(DIST_L1, 5), exact L1;
+  draw_lines                 cv2.line(..., thickness 1), LINE_8, many
+                             lines at once;
   thick_line_box             cv2.line(..., thickness > 1), LINE_8,
                              between points inside the grid;
   fill_poly                  cv2.fillPoly for one contour, LINE_8;
@@ -23,11 +25,8 @@ The drawing functions follow the integer and 16.16 fixed-point
 arithmetic of OpenCV's drawing.cpp (Bresenham lines, the convex fill of
 a thick line's body with its clipped edges, its round caps, the
 edge-list polygon fill with its clipped edges), as OpenCV 5.0 computes
-them.  One difference is known: where a polygon's edge leaves the grid,
-fill_poly can set or leave a cell of the grid's outermost row or column
-that cv2 does not (on 136 of 4000 random polygons reaching out of a
-50x40 grid; never a cell inside that border; ROADMAP.md, queue 3 item
-j).  Grids are (H, W) arrays indexed [y, x]; points are (x, y) integers,
+them (fill_poly also where an edge leaves the grid, ROADMAP.md queue 3
+item j).  Grids are (H, W) arrays indexed [y, x]; points are (x, y) integers,
 as cv2 takes them.
 """
 from __future__ import annotations
@@ -151,6 +150,50 @@ def _line_points(x0, y0, x1, y1):
             if diag:
                 y += sy
     return pts
+
+
+def draw_lines(shape, p0, p1) -> np.ndarray:
+    """cv2.line(canvas, p0[i], p1[i], 1, 1) for every i on one zero (H, W)
+    uint8 canvas, LINE_8: the cells of cv2's 8-connected LineIterator
+    (left to right), ends outside the grid clipped as cv2.clipLine clips
+    them.  p0, p1 (N, 2) integer (x, y) points, or one point broadcast
+    against the other's N.  Vectorized over the lines: the k-th cell of
+    a line with major extent M and minor extent m steps the minor axis
+    ceil((2 m k - M) / (2 M)) times, Bresenham's error term in closed
+    form."""
+    h, w = shape
+    p0 = np.asarray(p0, np.int64).reshape(-1, 2)
+    p1 = np.asarray(p1, np.int64).reshape(-1, 2)
+    p0, p1 = np.broadcast_arrays(p0, p1)
+    x0, y0 = p0[:, 0].copy(), p0[:, 1].copy()
+    x1, y1 = p1[:, 0].copy(), p1[:, 1].copy()
+    out = np.zeros((h, w), np.uint8)
+    keep = np.ones(len(x0), bool)
+    outside = ((x0 < 0) | (x0 >= w) | (y0 < 0) | (y0 >= h)
+               | (x1 < 0) | (x1 >= w) | (y1 < 0) | (y1 >= h))
+    for i in np.nonzero(outside)[0]:
+        keep[i], x0[i], y0[i], x1[i], y1[i] = _clip_ends(
+            w, h, int(x0[i]), int(y0[i]), int(x1[i]), int(y1[i]))
+    x0, y0, x1, y1 = x0[keep], y0[keep], x1[keep], y1[keep]
+    swap = x1 < x0
+    x0, x1 = np.where(swap, x1, x0), np.where(swap, x0, x1)
+    y0, y1 = np.where(swap, y1, y0), np.where(swap, y0, y1)
+    dx, dy = x1 - x0, y1 - y0
+    sy = np.where(dy < 0, -1, 1)
+    steep = np.abs(dy) > dx
+    major = np.where(steep, np.abs(dy), dx)
+    minor = np.where(steep, dx, np.abs(dy))
+    count = major + 1
+    line = np.repeat(np.arange(len(x0)), count)
+    k = np.arange(int(count.sum())) - np.repeat(np.cumsum(count) - count,
+                                                 count)
+    big, small = major[line], minor[line]
+    n_minor = -((big - 2 * small * k) // np.maximum(2 * big, 1))
+    st = steep[line]
+    xs = x0[line] + np.where(st, n_minor, k)
+    ys = y0[line] + sy[line] * np.where(st, k, n_minor)
+    out[ys, xs] = 1
+    return out
 
 
 def _clip_ends(w: int, h: int, x1, y1, x2, y2):

@@ -241,11 +241,9 @@ def test_entry_point_runs_an_episode(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--sim", "habitat"], ["--dino_gate"],
-                                  ["--known_env"],
                                   ["--dino_weights", "dino.pth"],
                                   ["--lpips_weights", "alex.pth"],
                                   ["--ensemble_dir", "ensemble"],
-                                  ["--object_scene", "--known_env"],
                                   ["--object_scene", "--dino_gate"]])
 def test_entry_point_refuses_unported_flags(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

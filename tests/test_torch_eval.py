@@ -6,17 +6,21 @@ Tolerances: lpips_proxy, render_metrics and _batch_render_metrics rtol
 orders); uniform_eval_poses, the MetricsRecorder YAML and the PSNR
 scatter image equal; the reconstruction metrics rtol 1e-9 (both run
 scipy's cKDTree in float64; the running form against the one-shot one
-is exact up to the order of its sums)."""
+is exact up to the order of its sums).  _nn_dists' card path (the 1-NN
+kernel's rows, the distance recomputed in float64) is held to cKDTree at
+rtol 1e-12 on the rows of the kernel's CPU twin."""
 import cv2
 import numpy as np
 import pytest
 import torch
 import yaml
+from scipy.spatial import cKDTree
 
 from fisher_nerf_customized_tpu.engine import eval as jeval
 from fisher_nerf_customized_tpu.envs.fake_sim import BoxScene as JScene
 from fisher_nerf_customized_tpu_torch.engine import eval as teval
 from fisher_nerf_customized_tpu_torch.envs.fake_sim import BoxScene as TScene
+from fisher_nerf_customized_tpu_torch.ops import knn as tknn
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -111,6 +115,38 @@ def test_reconstruction_metrics(surface):
     for k in ref:
         np.testing.assert_allclose(got[k], ref[k], rtol=1e-9, err_msg=k)
         np.testing.assert_allclose(trow[k], got[k], rtol=1e-9, err_msg=k)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nn_dists_recompute_on_the_twins_rows(seed):
+    """On the card, _nn_dists takes each query's nearest ref from the 1-NN
+    kernel and recomputes its distance in float64 (_dists_to).  Fed the
+    rows of the kernel's CPU twin, it gives cKDTree's distances at rtol
+    1e-12 wherever the rows are cKDTree's, and a near tie elsewhere."""
+    _scene, gt, parts = recon_case(seed)
+    est = np.concatenate(parts)
+    for q, r in ((gt, est), (est, gt)):
+        _d, idx = tknn.knn(torch.from_numpy(q), torch.from_numpy(r), k=1)
+        idx = idx[:, 0].numpy()
+        ref_d, ref_i = cKDTree(r).query(q, k=1)
+        same = idx == ref_i
+        got = teval._dists_to(q, r, idx)
+        assert got.dtype == np.float64 and same.mean() > 0.999
+        np.testing.assert_allclose(got[same], ref_d[same], rtol=1e-12)
+        np.testing.assert_allclose(got[~same], ref_d[~same], rtol=0,
+                                   atol=1e-6)
+
+
+def test_nn_dists_on_the_cpu_is_ckdtree():
+    _scene, gt, parts = recon_case(3)
+    est = np.concatenate(parts)
+    ref, _i = cKDTree(est).query(gt, k=1)
+    np.testing.assert_array_equal(teval._nn_dists(gt, est, device="cpu"), ref)
+    a = teval.IncrementalReconMetric(gt, 0.05, device="cpu")
+    b = teval.IncrementalReconMetric(gt, 0.05)
+    for part in parts:
+        assert a.update(part) == b.update(part)
+    assert a.gt_dev is None
 
 
 def test_recon_state_dict_round_trip():

@@ -29,6 +29,10 @@ OBJECT_MODULES = [
     "models/object_slam.py", "engine/object_planning.py",
     "engine/seg_metrics.py", "ops/fisher.py", "ops/cuda_blend_bwd.py",
     "envs/fake_sim.py"]
+# the known-environment and navigation slice's modules
+KNOWN_ENV_MODULES = [
+    "ops/knn.py", "ops/cuda_knn.py", "engine/navigator.py",
+    "main_navigation.py", "planning/astar.py"]
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -43,7 +47,8 @@ def test_no_jax_imports(path):
 def test_episode_modules_are_checked():
     port = ROOT / "fisher_nerf_customized_tpu_torch"
     assert all(port / m in FILES
-               for m in EPISODE_MODULES + EVAL_MODULES + OBJECT_MODULES)
+               for m in EPISODE_MODULES + EVAL_MODULES + OBJECT_MODULES
+               + KNOWN_ENV_MODULES)
 
 
 def test_forbidden_pattern_catches_jax_imports():

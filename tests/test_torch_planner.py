@@ -167,10 +167,3 @@ def test_random_candidates_and_gaussians_match(planners):
     for k in ref:
         np.testing.assert_array_equal(got[k], ref[k])
     assert r_t.integers(1 << 30) == r_j.integers(1 << 30)
-
-
-def test_astar_backend_is_not_ported():
-    cfg = make_cfg(tcfg)
-    cfg.explore.planner_backend = "astar"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPlanner(cfg, device="cpu")
