@@ -29,7 +29,11 @@ Phases, one line each:
                    done_reason;
   eval             the episode's evaluation: PSNR, SSIM, lpips_proxy,
                    depth MAE (all poses and seen poses), the recon metrics
-                   and AUC, the eval's wall time and K1 launches (>= 2000),
+                   and AUC, the recon updates' seconds split into their
+                   sub-phases (new points, upload, the 1-NN call, the row
+                   download, the float64 recompute, the host surface
+                   distances, the running minimum; the 1-NN call must have
+                   run), the eval's wall time and K1 launches (>= 2000),
                    every metric finite, every pose's SSIM in [-1, 1.001],
                    the completeness ratio never falling between recon
                    points, the final recon equal to the one-shot metric on
@@ -141,17 +145,21 @@ Phases, one line each:
                    and the live ones, which set the bound; the ptxas report
                    of each K3 instantiation must show no stack frame and no
                    spills;
-  kernel_nn1       the 1-NN kernel against its plain twin on the card, to
-                   the bit in distance and row, at the recon metric's
-                   shape (the 1.2 M ground-truth points against 80 000
-                   points of the episode's cloud) and the novelty mask's
-                   (65 536 pixels of a known-env frame against the
-                   400 000-point cloud), each timed (CUDA events, the
-                   profiler's device time beside) with its
-                   twin, torch.cdist(...).min(1) and its bound; then exact
-                   ties across tile and split borders with 3000 queries
-                   (the refs split over gridDim.y), a mask with NaN and
-                   inf in masked rows, and an all-masked cloud;
+  kernel_nn1       the culled 1-NN kernel against its plain twin on the
+                   card, to the bit in distance and row, at the recon
+                   metric's shape (the 1.2 M ground-truth points against
+                   80 000 points of the episode's cloud) and the novelty
+                   mask's (65 536 pixels of a known-env frame against the
+                   400 000-point cloud), its count of evaluated pairs equal
+                   to the plain emulation's (nn1_culled_plain); each shape
+                   timed by CUDA events, the all-pairs pass and the culled
+                   call (glue included) in turns, the culled kernels alone,
+                   the twin and torch.cdist(...).min(1), beside the
+                   all-pairs bound and the culled work's; then exact ties
+                   across tiles and across the walk's splits over
+                   gridDim.y (3000 queries), queries on tile box faces, a
+                   coplanar cloud, NaN and inf in unmasked and in masked
+                   refs, and an all-masked cloud;
   wrappers         what K1's and K2's wrappers cost the host per mapping
                    event: each kernel phase times its wrapper's host work
                    per call (checks, allocations, the ctypes launch; no
@@ -248,6 +256,10 @@ MIN_OBJECT_MAPPING = 3
 # scene, and the frontier-only navigation on the episode's scene
 KNOWN_ENV_STEPS = 40
 NAV_STEPS = 100
+# the recon update's sub-phases in the episode's timer (engine/driver.py::
+# ActiveMapper._recon_update, engine/eval.py::IncrementalReconMetric.update)
+RECON_SUB_PHASES = ("new_points", "upload", "nn1", "download", "recompute",
+                    "surface", "running_min", "ckdtree")
 
 
 T_START = time.perf_counter()
@@ -516,8 +528,13 @@ def check_eval(result, mapper, ev):
                eval_k1_launches=ev["k1_launches"],
                recon_metric_total_s=timing["recon_metric"]["total_s"],
                recon_metric_count=timing["recon_metric"]["count"],
+               **{f"recon_{sub}_s": timing[f"recon_metric.{sub}"]["total_s"]
+                  for sub in RECON_SUB_PHASES
+                  if f"recon_metric.{sub}" in timing},
                pcl_total_s=timing["pcl"]["total_s"],
                n_points=mapper.global_pcl.n_points())
+    if timing.get("recon_metric.nn1", {}).get("count", 0) < 1:
+        raise AssertionError("the recon updates took no 1-NN kernel path")
     if ev["k1_launches"] < N_EVAL_POSES or ev_res["n_poses"] != N_EVAL_POSES:
         raise AssertionError(f"the eval launched K1 {ev['k1_launches']} "
                              f"times for {ev_res['n_poses']} poses")
@@ -1336,28 +1353,6 @@ def recon_card_check(est, gt, thresh, surface_fn=None):
     return row
 
 
-def nn1_profiler_ms(fn, reps, tries=3):
-    """Device time of one call of fn (both 1-NN kernels, the first pass and
-    the merge) over reps calls, from the profiler's kernel rows, or None
-    when `tries` sessions record none (after other profiler sessions in
-    one process, some record no kernel rows)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for attempt in range(tries):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if "nn1" in e.key and e.self_device_time_total > 0]
-        if rows:
-            return sum(e.self_device_time_total for e in rows) / 1e3 / reps
-        print(f"  profiler session {attempt + 1} recorded no nn1 kernel")
-    return None
-
-
 def cdist_min(q, r, block=8192):
     """The library's 1-NN: torch.cdist(q, r).min(1) over query blocks."""
     import torch
@@ -1369,95 +1364,187 @@ def cdist_min(q, r, block=8192):
     return torch.cat(out_d), torch.cat(out_i)
 
 
-def check_nn1(recon_q, recon_r, novelty_q, novelty_r):
-    """The 1-NN kernel against its plain twin on the card, on inputs
-    centred as ops/knn.py::knn centres them: at the recon metric's shape
-    (recon_q: the 1.2 M ground-truth points, recon_r: 80 000 points of the
-    episode's cloud) and at the novelty mask's (65 536 back-projected
-    pixels against the 400 000-point known cloud), then exact ties across
-    tile and split borders with few queries (the refs split over
-    gridDim.y), a mask with NaN and inf in masked rows, and an all-masked
-    cloud.  Distances and rows must equal the twin's to the bit.  Each
-    shape is timed by CUDA events around back-to-back calls (the kernel,
-    its twin and torch.cdist(...).min(1)) beside its bound; a call takes
-    milliseconds, so the host's gaps between launches do not count, and
-    the profiler's device time is reported beside it where it records
-    the kernel."""
+def check_nn1(recon_q, recon_r, novelty_q, novelty_r, object_gt,
+              object_est):
+    """The culled 1-NN kernel against its plain twin on the card, on inputs
+    centred as ops/knn.py::knn centres them, at the shapes the paths give
+    it: the recon metric's (recon_q: the 1.2 M ground-truth points,
+    recon_r: 80 000 points of the episode's cloud), the novelty mask's
+    (65 536 back-projected pixels against the 400 000-point known cloud),
+    the object metric's both ways (object_gt: its 20 000 surface samples,
+    object_est: the object's cloud), and, off the main path, few queries
+    against many refs (3000 points of the cloud against the ground
+    truth: the recon metric's accuracy without exact surface
+    distances): distances and rows equal the twin's to the bit, and the
+    kernel's count of evaluated pairs equals the plain emulation's
+    (cuda_knn.nn1_culled_plain).  Each shape is timed by CUDA events
+    around back-to-back calls, the all-pairs pass (cuda_nn1_brute) and
+    the culled call (its glue included) in turns (brute, culled, culled,
+    brute), the culled kernels alone on a prepared layout and, where the
+    walk is split over gridDim.y, the same kernels with one split in
+    turns (split, one, one, split), the twin and torch.cdist(...).min(1).
+    Beside them three bounds: the function's (bound_ms: each input read
+    once and each output written once, or 9 operations for each query's
+    one nearest pair, whichever takes longer), the culled work's (the
+    evaluated pairs, 9 operations each) and the all-pairs pass's (every
+    pair).  Then the edge cases, each equal to the twin: exact ties
+    across tiles and across the splits of the walk over gridDim.y with
+    few queries (the lowest row), queries on tile box faces, a coplanar
+    cloud, NaN and inf in unmasked and in masked refs, and an all-masked
+    cloud."""
+    import dataclasses
     import torch
     from fisher_nerf_customized_tpu_torch.ops import cuda_knn
     from fisher_nerf_customized_tpu_torch.ops.knn import center_inputs
+    dev = recon_q.device
 
-    def same(tag, args):
-        got = cuda_knn.cuda_nn1(*args)
+    def same(tag, args, pairs_too=False):
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = cuda_knn.cuda_nn1(*args, pair_count=count)
         ref = cuda_knn.nn1_plain(*args)
         torch.cuda.synchronize()
         if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
             bad = int(((got[0] != ref[0]) | (got[1] != ref[1])).sum())
             raise AssertionError(f"nn1 {tag}: {bad} queries differ from the "
                                  f"twin")
-        return got
+        pairs = int(count.item())
+        if pairs_too:
+            emu_d, emu_i, emu_pairs = cuda_knn.nn1_culled_plain(*args)
+            if not (torch.equal(emu_d, ref[0]) and torch.equal(emu_i, ref[1])):
+                raise AssertionError(f"nn1 {tag}: the emulation differs from "
+                                     f"the twin")
+            if emu_pairs != pairs:
+                raise AssertionError(f"nn1 {tag}: the kernel evaluated {pairs}"
+                                     f" pairs, the emulation {emu_pairs}")
+        return got, pairs
 
     rows = []
     for tag, q, r in (("recon", recon_q, recon_r),
-                      ("novelty", novelty_q, novelty_r)):
+                      ("novelty", novelty_q, novelty_r),
+                      ("object", object_gt, object_est),
+                      ("object_acc", object_est, object_gt),
+                      ("smallq", recon_r[:3000], recon_q)):
         qc, rc = center_inputs(q, r)
-        got = same(tag, (qc, rc))
         n_q, n_r = qc.shape[0], rc.shape[0]
-        splits, per = cuda_knn._splits(n_q, n_r)
-        launch = functools.partial(cuda_knn.cuda_nn1, qc, rc)
-        ms = cuda_ms(launch, 5)
-        ms_profiler = nn1_profiler_ms(launch, 5)
+        (got_d, got_i), pairs = same(tag, (qc, rc), pairs_too=True)
+        brute_d, brute_i = cuda_knn.cuda_nn1_brute(qc, rc)
+        if not (torch.equal(brute_d, got_d) and torch.equal(brute_i, got_i)):
+            raise AssertionError(f"nn1 {tag}: the all-pairs pass differs")
+        lay = cuda_knn.culled_layout(qc, rc)
+        out_d = torch.full((n_q,), float("inf"), device=dev)
+        out_i = torch.zeros(n_q, dtype=torch.int32, device=dev)
+        brute = functools.partial(cuda_knn.cuda_nn1_brute, qc, rc)
+        culled = functools.partial(cuda_knn.cuda_nn1, qc, rc)
+        turns = [cuda_ms(fn, 5) for fn in (brute, culled, culled, brute)]
+        kernel = cuda_ms(lambda: cuda_knn.launch_culled(lay, out_d, out_i), 5)
+        glue = cuda_ms(lambda: cuda_knn.culled_layout(qc, rc), 5)
+        row = dict(shape=tag, Q=n_q, R=n_r, tiles=lay.n_tiles,
+                   splits=lay.splits, pairs=pairs,
+                   pair_share=pairs / max(n_q * n_r, 1))
+        if lay.splits > 1:
+            # the same kernels with the walk unsplit, on the same layout
+            one = dataclasses.replace(lay, splits=1)
+            one_d = torch.full_like(out_d, float("inf"))
+            one_i = torch.zeros_like(out_i)
+            cuda_knn.launch_culled(one, one_d, one_i)
+            if not (torch.equal(one_d, got_d) and torch.equal(one_i, got_i)):
+                raise AssertionError(f"nn1 {tag}: one split differs")
+            split_turns = [cuda_ms(lambda x=x: cuda_knn.launch_culled(
+                x, out_d, out_i), 5) for x in (lay, one, one, lay)]
+            row.update(split_kernel_ms=(split_turns[0] + split_turns[3]) / 2,
+                       one_split_kernel_ms=(split_turns[1]
+                                            + split_turns[2]) / 2,
+                       split_kernel_ms_turns=split_turns)
+            del one, one_d, one_i
         plain = cuda_ms(lambda: cuda_knn.nn1_plain(qc, rc), 1)
         lib_d, _lib_i = cdist_min(qc, rc)
         library = cuda_ms(lambda: cdist_min(qc, rc), 1)
         n_bytes = (n_q + n_r) * 12 + n_q * 8
-        bms, bby = bound_ms(n_bytes, 9 * n_q * n_r)
-        row = dict(shape=tag, Q=n_q, R=n_r, splits=splits,
-                   refs_per_split=per, max_abs_err=0.0, ms=ms,
-                   ms_profiler=ms_profiler, plain_ms=plain,
+        bms, bby = bound_ms(n_bytes, 9 * n_q)
+        work_bound, work_by = bound_ms(n_bytes, 9 * pairs)
+        brute_bound, brute_by = bound_ms(n_bytes, 9 * n_q * n_r)
+        row.update(max_abs_err=0.0, ms=(turns[1] + turns[2]) / 2,
+                   culled_ms_turns=turns[1:3], kernel_ms=kernel,
+                   glue_ms=glue, brute_ms=(turns[0] + turns[3]) / 2,
+                   brute_ms_turns=[turns[0], turns[3]], plain_ms=plain,
                    library_ms=library,
-                   library_max_abs_diff=float((lib_d - got[0]).abs().max()),
-                   bound_ms=bms, bound_by=bby,
-                   pairs_per_s=n_q * n_r / (ms * 1e-3))
+                   library_max_abs_diff=float((lib_d - got_d).abs().max()),
+                   bound_ms=bms, bound_by=bby, culled_work_bound_ms=work_bound,
+                   culled_work_bound_by=work_by, brute_bound_ms=brute_bound,
+                   brute_bound_by=brute_by)
         rows.append(row)
-        phase("kernel_nn1", **fmt(row))
-        del qc, rc, got, lib_d, _lib_i
+        phase("kernel_nn1", **fmt({k: v for k, v in row.items()
+                                   if not isinstance(v, list)}))
+        del qc, rc, lay, out_d, out_i, got_d, got_i, brute_d, brute_i
+        del lib_d, _lib_i
 
-    # exact ties: duplicated refs across tile borders and across the split
-    # of the refs over gridDim.y, with few queries (the new -> ground-truth
-    # direction's shape), each query next to a duplicated point
+    g = torch.Generator(device=dev).manual_seed(0)
+    edge = {}
+    # exact ties with few queries (the new -> ground-truth direction's
+    # shape, the walk split over gridDim.y): 3 copies of each of 64 points
+    # at scattered rows, and 300 copies of one point (more than a tile,
+    # so its copies fill neighbouring tiles, which go to different
+    # splits); each query next to a duplicated point
     r = recon_q[:600_000].clone()
     q = recon_r[:3000].clone()
-    splits, per = cuda_knn._splits(q.shape[0], r.shape[0])
-    if splits < 2:
-        raise AssertionError(f"the small-Q case did not split: {splits}")
-    src = torch.arange(100, 100 + 64 * 37, 37, device=r.device)
-    r[src + cuda_knn.TILE] = r[src]
-    r[src + per] = r[src]
+    src = torch.arange(100, 100 + 64 * 37, 37, device=dev)
+    r[src + 250_000] = r[src]
+    r[src + 500_000] = r[src]
+    many = torch.arange(300_000, 300_000 + 300 * 997, 997, device=dev)
+    r[many] = r[7].clone()
     q[:len(src)] = r[src] + 1e-4
+    q[len(src)] = r[7] + 1e-4
     qc, rc = center_inputs(q, r)
-    got = same("ties", (qc, rc))
-    if not torch.equal(got[1][:len(src)].long(), src):
+    lay = cuda_knn.culled_layout(qc, rc)
+    if lay.splits < 2:
+        raise AssertionError(f"the small-Q case did not split: {lay.splits}")
+    (_d, got_i), edge["ties_pairs"] = same("ties", (qc, rc))
+    if not (torch.equal(got_i[:len(src)].long(), src) and int(got_i[len(src)])
+            == 7):
         raise AssertionError("nn1 ties: not the lowest row")
-    # a mask, with NaN and inf in masked rows (the wrapper's callers zero
-    # them, the kernel skips them all the same)
-    g = torch.Generator(device=r.device).manual_seed(0)
-    mask = torch.rand(rc.shape[0], generator=g, device=r.device) < 0.5
-    rc_bad = rc.clone()
-    off = torch.nonzero(~mask).flatten()
-    rc_bad[off[:50]] = float("nan")
-    rc_bad[off[50:60]] = float("inf")
-    got_m = same("mask", (qc, rc_bad, mask))
+    edge.update(tie_queries=len(src) + 1, tie_splits=lay.splits,
+                tie_tiles=lay.n_tiles)
+    # queries on tile box faces: each on a face of a tile's box (one
+    # coordinate the box's min or max, the others inside it)
+    qc, rc = center_inputs(recon_q[:200_000], recon_r)
+    lay = cuda_knn.culled_layout(qc, rc)
+    tiles = torch.randint(0, lay.n_tiles, (20_000,), generator=g, device=dev)
+    lo, hi = lay.boxes[tiles, :3], lay.boxes[tiles, 4:7]
+    face = lo + (hi - lo) * torch.rand(lo.shape, generator=g, device=dev)
+    axis = torch.randint(0, 3, (len(tiles),), generator=g, device=dev)
+    side = torch.where(torch.rand(len(tiles), 1, generator=g, device=dev)
+                       < 0.5, lo, hi)
+    pick = torch.arange(len(tiles), device=dev)
+    face[pick, axis] = side[pick, axis]
+    _got, edge["face_pairs"] = same("faces", (face.contiguous(), rc), True)
+    edge["face_queries"] = len(tiles)
+    # a coplanar cloud: every point at z = 0.25, queries on the plane and
+    # off it
+    flat_r, flat_q = rc.clone(), qc[:50_000].clone()
+    flat_r[:, 2] = 0.25
+    flat_q[:25_000, 2] = 0.25
+    _got, edge["coplanar_pairs"] = same("coplanar", (flat_q, flat_r), True)
+    # NaN and inf in unmasked refs (no mask: they can never win), and in
+    # masked ones
+    bad = rc.clone()
+    rows_bad = torch.randperm(bad.shape[0], generator=g, device=dev)[:600]
+    bad[rows_bad[:200], 0] = float("nan")
+    bad[rows_bad[200:400], 1] = float("inf")
+    bad[rows_bad[400:], 2] = -float("inf")
+    _got, edge["nonfinite_pairs"] = same("nonfinite", (qc, bad), True)
+    mask = torch.rand(bad.shape[0], generator=g, device=dev) < 0.5
+    mask[rows_bad] = False
+    got_m, _pairs = same("mask", (qc, bad, mask), True)
     keep = torch.nonzero(mask).flatten()
-    sub = cuda_knn.cuda_nn1(qc, rc[keep].contiguous())
+    sub, _pairs = same("unmasked", (qc, rc[keep].contiguous()))
     if not (torch.equal(got_m[0], sub[0])
             and torch.equal(keep[sub[1].long()], got_m[1].long())):
         raise AssertionError("nn1 mask: not the 1-NN of the unmasked refs")
-    none = same("all_masked", (qc, rc, torch.zeros_like(mask)))
-    if not (bool(torch.isinf(none[0]).all()) and not bool(none[1].any())):
+    (none_d, none_i), _pairs = same("all_masked",
+                                   (qc, rc, torch.zeros_like(mask)))
+    if not (bool(torch.isinf(none_d).all()) and not bool(none_i.any())):
         raise AssertionError("nn1 all masked: not (inf, 0)")
-    edge = dict(tie_queries=len(src), tie_splits=splits,
-                tie_refs_per_split=per, masked_refs=int((~mask).sum()))
+    edge.update(nonfinite_refs=len(rows_bad), masked_refs=int((~mask).sum()))
     phase("kernel_nn1", **edge)
     return rows, edge
 
@@ -1761,6 +1848,7 @@ def main(argv=None):
                                            for e in mapper.plan_log])
         phase("episode", **fmt(ep_row))
         for name in ("tracking_mapping", "occupancy", "pcl", "recon_metric",
+                     *(f"recon_metric.{sub}" for sub in RECON_SUB_PHASES),
                      "eval", "planning", "plan.global", "plan.sweep",
                      "plan.global.wait", "plan.actions", "plan.h_train",
                      "plan.rollout", "plan.path_eig", "prewarm", "sim_step",
@@ -2266,18 +2354,28 @@ def main(argv=None):
         obs = probe_sim.get_observations()
         frame = (obs["depth"], np.asarray(obs["c2w"], np.float32))
         inv_k = np.linalg.inv(probe_sim.intrinsics).astype(np.float32)
+        from fisher_nerf_customized_tpu_torch.envs.fake_sim import SimObject
+        obj = SimObject(scene, size=(0.5, 1.2, 0.5))
+        obj_est_np = (obj.sample_surface_points(64000, rng=rng,
+                                                frame="object")
+                      + rng.normal(0, 0.003, (64000, 3)))
     else:
         gt_np = mapper._inc_recon.gt
         est_np = mapper.global_pcl.get()[:80000]
         known_np = np.asarray(k_mapper.known_env_points, np.float32)
         frame = k_rec["frames"][0]
         inv_k = np.linalg.inv(k_mapper.sim.intrinsics).astype(np.float32)
+        obj = o_mapper.sim.dynamic_object
+        obj_est_np = o_mapper.global_obj_pcl
     nov_q = backproject_world(frame[0].to(dev), torch.as_tensor(inv_k),
                               torch.as_tensor(frame[1]))
     nn1_rows, nn1_edge = check_nn1(
         torch.as_tensor(gt_np, device=dev),
         torch.as_tensor(np.asarray(est_np, np.float32), device=dev),
-        nov_q, torch.as_tensor(known_np, device=dev))
+        nov_q, torch.as_tensor(known_np, device=dev),
+        torch.as_tensor(obj.sample_surface_points(20000, frame="object"),
+                        device=dev),
+        torch.as_tensor(np.asarray(obj_est_np, np.float32), device=dev))
     report["kernel_nn1"] = dict(rows=nn1_rows, edge=nn1_edge)
     main_nn1 = nn1_rows[0]          # the recon metric's shape
     entries["nn1"] = dict(

@@ -648,7 +648,8 @@ class ActiveMapper:
         """Feed the running reconstruction metric the cloud's new points.
         After a resume the restored running state stands for the loaded
         cloud's first points (append-only, same order: the skip is
-        exact)."""
+        exact).  The timer splits it under recon_metric: .new_points and
+        IncrementalReconMetric.update's sub-phases."""
         if self._inc_recon is None:
             self._inc_recon = IncrementalReconMetric(
                 recon_gt_points, 0.05,
@@ -658,13 +659,14 @@ class ActiveMapper:
                 if self._inc_recon.load_state_dict(self._inc_recon_saved):
                     self._pcl_skip = self._inc_recon.n_est
                 self._inc_recon_saved = None
-        new_pts, self._pcl_cursor = self.global_pcl.get_new(
-            self._pcl_cursor)
-        if self._pcl_skip:
-            k = min(self._pcl_skip, len(new_pts))
-            new_pts = new_pts[k:]
-            self._pcl_skip -= k
-        return self._inc_recon.update(new_pts)
+        with self.timer.phase("recon_metric.new_points"):
+            new_pts, self._pcl_cursor = self.global_pcl.get_new(
+                self._pcl_cursor)
+            if self._pcl_skip:
+                k = min(self._pcl_skip, len(new_pts))
+                new_pts = new_pts[k:]
+                self._pcl_skip -= k
+        return self._inc_recon.update(new_pts, timer=self.timer)
 
     # -- checkpoint / resume ------------------------------------------------
     def _path(self, name: str) -> str:

@@ -24,6 +24,7 @@ have (set_lpips_weights).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import os
@@ -418,8 +419,15 @@ def evaluate_ate(gt_poses: np.ndarray, est_poses: np.ndarray) -> float:
 NN_DEVICE_PAIRS = 1e8     # queries x refs from which the card takes the NN
 
 
+def _phase(timer, name: str):
+    """timer.phase("recon_metric." + name), or nothing without a timer
+    (a utils/logging_utils.py::StepTimer)."""
+    return (contextlib.nullcontext() if timer is None
+            else timer.phase(f"recon_metric.{name}"))
+
+
 def _nn_dists(queries: np.ndarray, refs: np.ndarray, device=None,
-              queries_dev=None, refs_dev=None) -> np.ndarray:
+              queries_dev=None, refs_dev=None, timer=None) -> np.ndarray:
     """Distance from each query to its nearest reference point (float64).
 
     On a CUDA `device`, with queries x refs >= NN_DEVICE_PAIRS, the 1-NN
@@ -429,20 +437,31 @@ def _nn_dists(queries: np.ndarray, refs: np.ndarray, device=None,
     point, the distance is cKDTree's to the bit.  queries_dev / refs_dev
     are float32 copies of the inputs already on that device (a fixed
     ground-truth cloud is uploaded once).  Otherwise scipy's cKDTree on
-    every core (the answers do not depend on the worker count)."""
+    every core (the answers do not depend on the worker count).  With a
+    `timer`, the sub-phases recon_metric.ckdtree, or .upload, .nn1 (the
+    kernel call, synchronized), .download (the rows) and .recompute."""
     dev = None if device is None else torch.device(device)
     if dev is None or dev.type != "cuda" or \
             len(queries) * len(refs) < NN_DEVICE_PAIRS:
-        d, _ = cKDTree(refs).query(queries, k=1, workers=-1)
+        with _phase(timer, "ckdtree"):
+            d, _ = cKDTree(refs).query(queries, k=1, workers=-1)
         return d
     from ..ops.knn import knn
-    if queries_dev is None:
-        queries_dev = torch.as_tensor(np.asarray(queries, np.float32),
-                                      device=dev)
-    if refs_dev is None:
-        refs_dev = torch.as_tensor(np.asarray(refs, np.float32), device=dev)
-    _d, idx = knn(queries_dev, refs_dev, k=1)
-    return _dists_to(queries, refs, idx[:, 0].cpu().numpy())
+    with _phase(timer, "upload"):
+        if queries_dev is None:
+            queries_dev = torch.as_tensor(np.asarray(queries, np.float32),
+                                          device=dev)
+        if refs_dev is None:
+            refs_dev = torch.as_tensor(np.asarray(refs, np.float32),
+                                       device=dev)
+    with _phase(timer, "nn1"):
+        _d, idx = knn(queries_dev, refs_dev, k=1)
+        if timer is not None:
+            torch.cuda.synchronize(dev)
+    with _phase(timer, "download"):
+        idx = idx[:, 0].cpu().numpy()
+    with _phase(timer, "recompute"):
+        return _dists_to(queries, refs, idx)
 
 
 def _dists_to(queries, refs, idx) -> np.ndarray:
@@ -534,29 +553,40 @@ class IncrementalReconMetric:
         self.n_est = int(acc[2])
         return True
 
-    def update(self, new_est) -> dict:
+    def update(self, new_est, timer=None) -> dict:
+        """Add the cloud's new points and return the metric on the whole
+        cloud.  With a `timer` (a StepTimer), its sub-phases under
+        recon_metric: .surface (the exact surface distances, on the host),
+        those of _nn_dists, and .running_min (the gt -> est minimum and
+        the returned means)."""
         new_est = np.asarray(new_est, np.float32)
         if len(new_est):
-            d_e2g = (_chunked_surface_dists(self.surface_dist_fn, new_est)
-                     if self.surface_dist_fn is not None
-                     else _nn_dists(new_est, self.gt, self.device,
-                                    refs_dev=self.gt_dev))
+            if self.surface_dist_fn is not None:
+                with _phase(timer, "surface"):
+                    d_e2g = _chunked_surface_dists(self.surface_dist_fn,
+                                                   new_est)
+            else:
+                d_e2g = _nn_dists(new_est, self.gt, self.device,
+                                  refs_dev=self.gt_dev, timer=timer)
             self.acc_sum += float(d_e2g.sum())
             self.acc_in += int((d_e2g < self.thresh).sum())
             self.n_est += len(new_est)
-            self.d_gt_min = np.minimum(self.d_gt_min, _nn_dists(
-                self.gt, new_est, self.device, queries_dev=self.gt_dev))
+            d_new = _nn_dists(self.gt, new_est, self.device,
+                              queries_dev=self.gt_dev, timer=timer)
+            with _phase(timer, "running_min"):
+                self.d_gt_min = np.minimum(self.d_gt_min, d_new)
         if self.n_est == 0:
             return dict(acc_distance=float("inf"),
                         comp_distance=float("inf"),
                         completeness_ratio=0.0, fpr=1.0)
-        d = self.d_gt_min
-        return dict(
-            acc_distance=self.acc_sum / self.n_est,
-            comp_distance=float(d.mean()),
-            completeness_ratio=float((d < self.thresh).mean() * 100.0),
-            fpr=float((1.0 - self.acc_in / self.n_est) * 100.0),
-        )
+        with _phase(timer, "running_min"):
+            d = self.d_gt_min
+            return dict(
+                acc_distance=self.acc_sum / self.n_est,
+                comp_distance=float(d.mean()),
+                completeness_ratio=float((d < self.thresh).mean() * 100.0),
+                fpr=float((1.0 - self.acc_in / self.n_est) * 100.0),
+            )
 
 
 def coverage_percentage(gt_pts: np.ndarray, est_pts: np.ndarray,

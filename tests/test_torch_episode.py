@@ -197,7 +197,9 @@ def test_episode_result_and_timer(episodes):
     assert 0.0 < res["coverage_2d_pct"] <= 100.0
     for phase in ("tracking_mapping", "occupancy", "pcl", "recon_metric",
                   "eval", "plan.global", "plan.sweep", "plan.global.wait",
-                  "plan.actions", "plan.h_train", "plan.path_eig"):
+                  "plan.actions", "plan.h_train", "plan.path_eig",
+                  "recon_metric.new_points", "recon_metric.surface",
+                  "recon_metric.running_min"):
         assert res["timing"][phase]["count"] >= 1, phase
     for name in ("eval.json", "gaussians_based_results.txt",
                  "eval_psnr_map.png", "metrics_curve.yaml",

@@ -15,7 +15,8 @@ Tolerances:
   5 cm cut (the two round the back-projection and the distance
   differently there), and the min_pixels gate decided the same way;
 - exact ties (duplicated points) keep the lowest row, across chunk
-  borders and across the kernel's split of the refs.
+  borders and across the culled search's splits
+  (tests/test_torch_knn_culled.py holds that search to the twin).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -132,38 +133,55 @@ def test_exact_ties_keep_the_lowest_row():
 
 
 def test_kernel_splits_cover_the_refs_with_whole_tiles():
+    """The culled pass's split over gridDim.y: every block's walk visits
+    each whole tile of the refs once, and its splits take every
+    splits-th step, so together they cover every tile, each once but the
+    walk's first tile, which every split opens with; the queries alone
+    fill the card when they can, and a split has MIN_SPLIT_STEPS steps
+    of its own."""
     for n_q, n_r in [(3277, 1_200_000), (65536, 400_000), (1_200_000, 80_000),
                      (1, 1), (5000, 0), (17, 1025), (2048, 3_000_000)]:
-        splits, per = cuda_knn._splits(n_q, n_r)
-        assert per % cuda_knn.TILE == 0 and 1 <= splits <= 65535
-        assert splits * per >= n_r and (splits - 1) * per < max(n_r, 1)
-        q_blocks = -(-n_q // cuda_knn.QUERIES_PER_BLOCK)
-        if q_blocks >= cuda_knn.TARGET_BLOCKS:
+        n_t = -(-n_r // cuda_knn.TILE)
+        n_blocks = -(-n_q // cuda_knn.QUERIES_PER_BLOCK)
+        splits = cuda_knn._splits(n_blocks, n_t)
+        assert 1 <= splits <= 65535
+        assert splits == 1 or splits * cuda_knn.MIN_SPLIT_STEPS <= n_t
+        if n_blocks >= cuda_knn.TARGET_BLOCKS:
             assert splits == 1
+        else:
+            assert n_blocks * splits >= cuda_knn.TARGET_BLOCKS or \
+                splits == max(1, n_t // cuda_knn.MIN_SPLIT_STEPS)
+        if n_t == 0:                # no refs: no walk, one split
+            assert splits == 1
+            continue
+        for c in sorted({0, n_t // 3, n_t - 1}):
+            walk = cuda_knn.visit_tile(torch.tensor(c), n_t,
+                                       torch.arange(n_t))
+            assert int(walk[0]) == c
+            dealt = torch.cat([walk[cuda_knn.split_steps(
+                torch.tensor(s), splits, torch.arange(int(
+                    cuda_knn.n_split_steps(torch.tensor(s), splits, n_t))))]
+                for s in range(splits)])
+            assert torch.equal(torch.sort(dealt).values, torch.cat(
+                [torch.full((splits - 1,), c), torch.arange(n_t)]).sort(
+                ).values)
 
 
 def test_split_merge_keeps_the_lowest_row_across_splits():
-    """The kernel's two passes on the twin: each split's partial 1-NN over
-    its range of refs, merged in ascending split order by strictly
-    smaller d2, equal the 1-NN over all refs, ties across a split border
-    included."""
+    """The culled search (its plain emulation) with the walk split over
+    gridDim.y, each split with bests of its own, merged by (d2, row):
+    equal to the 1-NN over all refs, ties across the splits and a
+    masked ref included."""
     q, r, src = tied_clouds(n_r=4096, chunk=1024)
     mask = np.ones(len(r), bool)
     mask[7] = False
     qc, rc = tknn.center_inputs(t(q), t(r), t(mask))
-    per = 1024
-    best, best_i = None, None
-    for s0 in range(0, len(r), per):
-        d, i = cuda_knn.nn1_plain(qc, rc[s0:s0 + per], t(mask[s0:s0 + per]))
-        i = torch.where(torch.isinf(d), torch.zeros_like(i), i + s0)
-        if best is None:
-            best, best_i = d, i
-        else:
-            better = d < best
-            best = torch.where(better, d, best)
-            best_i = torch.where(better, i, best_i)
     d, i = cuda_knn.nn1_plain(qc, rc, t(mask), chunk=1000)
-    assert torch.equal(best, d) and torch.equal(best_i, i)
+    for splits in (1, 2, 3, 8):
+        got_d, got_i, _pairs = cuda_knn.nn1_culled_plain(
+            qc, rc, t(mask), tile=16, warp_queries=8, block_warps=2,
+            splits=splits)
+        assert torch.equal(got_d, d) and torch.equal(got_i, i)
     np.testing.assert_array_equal(i.numpy()[:len(src)], src)
 
 
