@@ -115,6 +115,23 @@ Phases, one line each:
                    metric of the whole cloud every 25 steps (the 1-NN
                    kernel, launch count zeroed just before and read just
                    after); the final recon held to cKDTree's at rtol 1e-9;
+  tracking         optimized tracking through the entry point
+                   (cli.run_scene with --set tracking.use_gt_poses False)
+                   on fake_apartment_0 at the same width, 30 steps, no
+                   evaluation: every frame's pose tracked (40 Adam steps
+                   of K1 + K2 on (q, t), doubled when the depth loss stays
+                   at 20000 or above), 3 mapping events on the tracked
+                   poses.  Launch counts zeroed just before and read just
+                   after (K1 and K2 must run).  Prints the wall time, the
+                   seconds in _track_pose (wrapped here with a CUDA sync),
+                   ms per tracked frame, the phases and doubled phases,
+                   K1 and K2 launches while tracking, and the ATE and the
+                   largest position and rotation errors of the tracked
+                   poses against the sim's; fails on a non-finite pose,
+                   or when the first four tracked frames' position errors
+                   (the scripted init scan) part by more than 1 cm from
+                   the JAX package's on the same frames (with the shipped
+                   settings both drift on its 10-degree turns);
   slice            the map-query path at the same width: 60 scripted steps
                    through GaussianSLAM.track_rgbd (6 mapping events of
                    densify + 60 Adam steps of 2 frames), then renders at 8
@@ -127,6 +144,19 @@ Phases, one line each:
   probe            the slice's map (60 frames, 6 mapping events with Adam;
                    with --kernels-only the same map is built here); the
                    kernel phases below run on it;
+  tracking_check   on the probe map at its latest keyframe, from a pose
+                   moved by (2, -1, 3) cm and 1 degree: the first tracking
+                   step's loss and (q, t) gradient (to 1e-3 of its norm)
+                   and one 8-step tracking phase (per-step losses rtol
+                   1e-3, best pose within Adam's 2 lr x steps) on the card
+                   against the CPU twin; times one tracking step (a
+                   one-step phase: K1, K2, autograd, Adam) and one
+                   40-step phase;
+  slam_settings    on copies of the probe map, the card against the CPU
+                   twin: gs_densify from one shared draw (n_active exact,
+                   parameters rtol 1e-5), the seen-from-the-keyframes mask
+                   of prune_invisible (slots that differ must sit at a
+                   culling boundary) and its removed count;
   kernel_blend     K1 against its plain PyTorch twin on the card, at
                    T 256, K 256 and 512, C 4 and 5, with its rows walked
                    (the stop) against the twin's on every tile; counts the
@@ -258,6 +288,17 @@ KNOWN_ENV_STEPS = 40
 NAV_STEPS = 100
 # the recon update's sub-phases in the episode's timer (engine/driver.py::
 # ActiveMapper._recon_update, engine/eval.py::IncrementalReconMetric.update)
+TRACK_STEPS = 30        # the tracked episode: 3 mapping events
+# The JAX package's position errors (m) on the tracked episode's first four
+# frames (the init frame again and three 10-degree turns of the scripted
+# init scan: before any mapping or planning event, so the same frames on
+# every device), from tests/test_torch_tracking.py's
+# test_jax_tracking_drifts_on_the_init_scan, which holds the JAX package to
+# them.  The card's must agree within SCAN_ATOL_M.
+JAX_SCAN_ERRORS_M = (0.0315608, 0.182126, 0.460087, 0.728978)
+SCAN_ATOL_M = 0.01
+TRACK_CHECK_ITERS = 8   # the card-against-CPU tracking phase
+TRACK_SHIFT = np.array([0.02, -0.01, 0.03], np.float32)
 RECON_SUB_PHASES = ("new_points", "upload", "nn1", "download", "recompute",
                     "surface", "running_min", "ckdtree")
 
@@ -1734,6 +1775,349 @@ def run_navigation(log_dir):
     return row, nav
 
 
+def run_tracking(log_dir):
+    """The port's entry point with optimized tracking (`--set
+    tracking.use_gt_poses False`) on SCENE for TRACK_STEPS steps, on the
+    card (no evaluation): (result, mapper, row).  The launch counts are
+    zeroed just before and read just after; GaussianSLAM._track_pose is
+    wrapped here (a CUDA sync on each side) to time it and count its K1
+    and K2 launches, and _tracking_phase to count the phases and the
+    doubled ones.  Fails on a non-finite pose, or when the position errors
+    of the first four tracked frames part from the JAX package's on the
+    same frames (JAX_SCAN_ERRORS_M) by more than SCAN_ATOL_M.  With the
+    shipped settings the reference's tracking drifts on the init scan's
+    10-degree turns, and so does the port's: the drift is reported, not
+    gated."""
+    import torch
+    from fisher_nerf_customized_tpu_torch import cli
+    from fisher_nerf_customized_tpu_torch.engine.eval import evaluate_ate
+    from fisher_nerf_customized_tpu_torch.models import slam as tslam
+    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
+                                                      cuda_blend_bwd,
+                                                      cuda_fisher, cuda_knn)
+    args = cli.build_parser().parse_args([
+        "--slam_config", os.path.join(HERE, "configs",
+                                      "mp3d_gaussian_FR_eccv.yaml"),
+        "--scenes_list", SCENE, "--max_steps", str(TRACK_STEPS),
+        "--eval_poses", "0", "--log_dir", log_dir, "--name", "tracking",
+        "--set", "tracking.use_gt_poses", "False"])
+    cfg = cli.load_config(args)
+    base_iters = int(cfg.tracking.num_iters)
+    cls = tslam.GaussianSLAM
+    track_fn, rgbd_fn, phase_fn = (cls._track_pose, cls.track_rgbd,
+                                   tslam._tracking_phase)
+    rec = dict(seconds=0.0, frames=0, phases=0, doubled=0, k1=0, k2=0,
+               gt_w2c=[])
+
+    def tracking(self, color, depth):
+        torch.cuda.synchronize()
+        k1, k2 = cuda_blend.launches, cuda_blend_bwd.launches
+        t0 = time.perf_counter()
+        out = track_fn(self, color, depth)
+        torch.cuda.synchronize()
+        rec["seconds"] += time.perf_counter() - t0
+        rec["frames"] += 1
+        rec["k1"] += cuda_blend.launches - k1
+        rec["k2"] += cuda_blend_bwd.launches - k2
+        return out
+
+    def phases(*a, **kw):
+        rec["phases"] += 1
+        rec["doubled"] += int(a[-1].num_iters != base_iters)
+        return phase_fn(*a, **kw)
+
+    def recording(self, color, depth, gt_w2c=None, action=None):
+        if self.initialized:
+            rec["gt_w2c"].append(np.asarray(gt_w2c, np.float32))
+        return rgbd_fn(self, color, depth, gt_w2c, action)
+
+    cls._track_pose, cls.track_rgbd = tracking, recording
+    tslam._tracking_phase = phases
+    for mod, names in ((cuda_blend, ["launches"]),
+                       (cuda_blend_bwd, ["launches", "launches_probes"]),
+                       (cuda_fisher, ["launches", "launches_full"]),
+                       (cuda_knn, ["launches"])):
+        for name in names:
+            setattr(mod, name, 0)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, mapper = cli.run_scene(args, cfg, SCENE)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        cls._track_pose, cls.track_rgbd = track_fn, rgbd_fn
+        tslam._tracking_phase = phase_fn
+    launches = dict(blend=cuda_blend.launches,
+                    blend_bwd=cuda_blend_bwd.launches,
+                    fisher=cuda_fisher.launches - cuda_fisher.launches_full,
+                    fisher_nf20=cuda_fisher.launches_full,
+                    nn1=cuda_knn.launches)
+    est = np.stack(mapper.slam.poses_w2c)
+    gt = np.stack([est[0]] + rec["gt_w2c"])
+    if est.shape != gt.shape or not np.isfinite(est).all():
+        raise AssertionError(f"tracking: {est.shape} poses against "
+                             f"{gt.shape}, finite: {np.isfinite(est).all()}")
+    est_c2w, gt_c2w = np.linalg.inv(est), np.linalg.inv(gt)
+    err = np.linalg.norm(est_c2w[:, :3, 3] - gt_c2w[:, :3, 3], axis=1)
+    cos = (np.einsum("nij,nij->n", est_c2w[:, :3, :3], gt_c2w[:, :3, :3])
+           - 1.0) / 2.0
+    row = dict(steps=result["steps"], done_reason=result["done_reason"],
+               wall_s=wall_s, track_s=rec["seconds"],
+               tracked_frames=rec["frames"],
+               ms_per_tracked_frame=rec["seconds"] * 1e3 / max(rec["frames"],
+                                                              1),
+               phases=rec["phases"], doubled_phases=rec["doubled"],
+               k1_launches_tracking=rec["k1"],
+               k2_launches_tracking=rec["k2"],
+               ate_m=evaluate_ate(gt_c2w, est_c2w),
+               max_trans_err_m=float(err.max()),
+               mean_trans_err_m=float(err.mean()),
+               max_rot_err_deg=float(np.degrees(np.arccos(
+                   np.clip(cos, -1.0, 1.0))).max()),
+               scan_errors_m=[float(e) for e in err[1:5]],
+               scan_err_off_jax_m=float(np.abs(
+                   err[1:5] - np.asarray(JAX_SCAN_ERRORS_M)).max()),
+               planning_events=result["planning_events"],
+               n_gaussians=result["n_gaussians"],
+               **{f"launches_{k}": v for k, v in launches.items()})
+    if result["steps"] != TRACK_STEPS or rec["frames"] != TRACK_STEPS:
+        raise AssertionError(f"tracking: {result['steps']} steps, "
+                             f"{rec['frames']} tracked frames")
+    if min(launches["blend"], launches["blend_bwd"], rec["k1"],
+           rec["k2"]) <= 0:
+        raise AssertionError(f"tracking: K1 or K2 not launched: {row}")
+    if not row["scan_err_off_jax_m"] <= SCAN_ATOL_M:
+        raise AssertionError(f"tracking: the init scan's position errors "
+                             f"{err[1:5]} part from the JAX package's "
+                             f"{JAX_SCAN_ERRORS_M}")
+    return result, mapper, row
+
+
+def shifted_start(w2c, dev):
+    """w2c moved by TRACK_SHIFT and turned about 1 degree about y, as a
+    (q, t) pair on dev."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.utils.geometry import (
+        rotmat_to_quat)
+    c, s = np.cos(0.017), np.sin(0.017)
+    w2c = np.asarray(w2c, np.float32).copy()
+    w2c[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]],
+                           np.float32) @ w2c[:3, :3]
+    w2c[:3, 3] += TRACK_SHIFT
+    return (rotmat_to_quat(torch.as_tensor(w2c[:3, :3], device=dev)),
+            torch.as_tensor(w2c[:3, 3], device=dev))
+
+
+def check_tracking(probe):
+    """On the probe map at its latest keyframe, from a pose moved by
+    TRACK_SHIFT: the first tracking step's loss and (q, t) gradient, and
+    one _tracking_phase of TRACK_CHECK_ITERS steps, on the card and on the
+    CPU (the plain twins, the state and frame moved there).  The
+    per-step losses agree to rtol 1e-3, the best (q, t) within
+    2 lr x steps per coordinate (Adam's sign-flip bound), the gradient
+    to 1e-3 of its norm.  Times one tracking step (K1 + K2 + autograd +
+    Adam: a one-step phase) and one phase of the config's steps, each the
+    median of 5 calls between synchronizes."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.models import slam as tslam
+    from fisher_nerf_customized_tpu_torch.models.gaussian_state import (
+        GaussianState)
+    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
+                                                      cuda_blend_bwd)
+    dev = probe.device
+    i = len(probe.keyframes) - 1
+    color = probe.keyframes.color_dev(i, dev)
+    depth = probe.keyframes.depth_dev(i, dev)
+    q0, t0 = shifted_start(probe.keyframes.w2cs[i], dev)
+    tc = probe.tc._replace(num_iters=TRACK_CHECK_ITERS)
+    cpu_state = GaussianState(*(x.cpu() for x in probe.state))
+    runs = {}
+    for name, state, d in (("card", probe.state, dev),
+                           ("cpu", cpu_state, torch.device("cpu"))):
+        q = q0.to(d).clone().requires_grad_()
+        t = t0.to(d).clone().requires_grad_()
+        loss, _dl = tslam._tracking_loss(q, t, state.params(), state.n_active,
+                                         color.to(d), depth.to(d),
+                                         probe.camera, probe.settings, tc)
+        grad = torch.cat(torch.autograd.grad(loss, [q, t])).cpu().numpy()
+        loss = loss.detach()
+        best_q, best_t, best_loss, depth_l, losses = tslam._tracking_phase(
+            state, q0.to(d), t0.to(d), color.to(d), depth.to(d),
+            probe.camera, probe.settings, tc)
+        runs[name] = dict(loss=float(loss), grad=grad,
+                          best=np.concatenate([best_q.cpu().numpy(),
+                                               best_t.cpu().numpy()]),
+                          best_loss=float(best_loss),
+                          losses=losses.cpu().numpy())
+    card, cpu = runs["card"], runs["cpu"]
+    loss_rel = np.abs(card["losses"] - cpu["losses"]) / np.abs(cpu["losses"])
+    grad_rel = float(np.linalg.norm(card["grad"] - cpu["grad"])
+                     / np.linalg.norm(cpu["grad"]))
+    pose_err = np.abs(card["best"] - cpu["best"])
+    bound = 2 * TRACK_CHECK_ITERS * np.array([tc.lr_rot] * 4
+                                             + [tc.lr_trans] * 3)
+    if not (loss_rel.max() <= 1e-3 and grad_rel <= 1e-3
+            and (pose_err <= bound).all()
+            and card["best_loss"] < card["losses"][0]):
+        raise AssertionError(f"tracking on the card off the CPU's: loss rel "
+                             f"{loss_rel.tolist()}, gradient rel {grad_rel}, "
+                             f"pose err {pose_err.tolist()} of "
+                             f"{bound.tolist()}, card {card}, cpu {cpu}")
+
+    def timed(n_iters):
+        tcn = probe.tc._replace(num_iters=n_iters)
+        out = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            tslam._tracking_phase(probe.state, q0, t0, color, depth,
+                                  probe.camera, probe.settings, tcn)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - a) * 1e3)
+        return float(np.median(out[1:]))
+
+    k1, k2 = cuda_blend.launches, cuda_blend_bwd.launches
+    step_ms = timed(1)
+    step_k1 = (cuda_blend.launches - k1) // 6
+    step_k2 = (cuda_blend_bwd.launches - k2) // 6
+    return dict(iters=TRACK_CHECK_ITERS, n_active=probe.n_active,
+                max_per_tile=probe.settings.max_per_tile,
+                loss_first=float(card["losses"][0]),
+                best_loss=card["best_loss"],
+                loss_rel_err_max=float(loss_rel.max()),
+                grad_rel_err=grad_rel,
+                pose_err_q_max=float(pose_err[:4].max()),
+                pose_err_t_max=float(pose_err[4:].max()),
+                step_ms=step_ms, step_k1=step_k1, step_k2=step_k2,
+                phase_iters=int(probe.tc.num_iters),
+                phase_ms=timed(int(probe.tc.num_iters)))
+
+
+def slam_copy(slam, device):
+    """A shallow copy of a GaussianSLAM with its state on `device`: what a
+    method replaces (the state, caches) stays the copy's."""
+    import copy
+    import torch
+    from fisher_nerf_customized_tpu_torch.models.gaussian_state import (
+        GaussianState)
+    out = copy.copy(slam)
+    out.device = torch.device(device)
+    out.state = GaussianState(*(x.to(device) for x in slam.state))
+    return out
+
+
+def unexplained_seen(state, w2cs, camera, slots):
+    """Of the slots whose seen flag differs between the card and the CPU,
+    those that sit at no culling boundary at any pose (on the CPU: z
+    within 1e-4 of the near plane, or one of the on-screen tests within 1
+    pixel of its threshold, where a last-bit difference in the mean or the
+    radius's ceil flips it)."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.ops.projection import preprocess
+    if len(slots) == 0:
+        return []
+    idx = torch.as_tensor(slots)
+    w2cs = torch.as_tensor(w2cs)
+    mc = state.means3D[idx] @ w2cs[:, :3, :3].transpose(-1, -2) \
+        + w2cs[:, None, :3, 3]
+    nb = mc.shape[0]
+    prep = preprocess(mc, torch.exp(state.log_scales[idx]).expand(nb, -1, 3),
+                      state.unnorm_rotations[idx].expand(nb, -1, 4), camera)
+    mid = 0.5 * (prep.cov2d[..., 0] + prep.cov2d[..., 2])
+    det = prep.cov2d[..., 0] * prep.cov2d[..., 2] - prep.cov2d[..., 1] ** 2
+    r = torch.ceil(3.0 * torch.sqrt(mid + torch.sqrt(torch.clamp(
+        mid * mid - det, min=0.1))))
+    u, v = prep.mean2d.unbind(-1)
+    edge = torch.stack([u + r, camera.width - (u - r), v + r,
+                        camera.height - (v - r)], -1).abs().amin(-1) <= 1.0
+    near = (prep.depth - camera.near).abs() <= 1e-4
+    explained = (edge | near).any(dim=0)
+    return [int(s) for s, ok in zip(slots, explained.tolist()) if not ok]
+
+
+def check_slam_settings(probe):
+    """gs_densify, _seen_from_poses and prune_invisible on copies of the
+    probe map, on the card against the CPU twin (the probe itself is left
+    as it is).  gs_densify gets one shared draw and seeded statistics
+    (every live slot counted once, a gradient uniform in [0, 1.25] x
+    grad_thresh): n_active exact, parameters rtol 1e-5 with atol 1e-5 of
+    each field's largest value (the children's offsets are summed in
+    another order on each device).  The keyframes' seen mask: the slots
+    that differ are reported and each must sit at a culling boundary
+    (unexplained_seen).  prune_invisible over the keyframes: the removed
+    count on each."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.models.gaussian_state import (
+        PARAM_KEYS)
+    dev = probe.device
+    dd = probe.cfg.mapping.densify_dict
+    thresh = float(dd.grad_thresh)
+    gen = torch.Generator().manual_seed(0)
+    cap, n = probe.state.capacity, probe.n_active
+    ga = torch.rand(cap, generator=gen) * 1.25 * thresh
+    dn = (torch.arange(cap) < n).float()
+    shared = {}
+
+    def draw(time_idx, n_children, shape, device):
+        """The card's draw, made once and handed to both copies (which
+        grow to the same capacity)."""
+        if "noise" not in shared:
+            shared["noise"] = probe.densify_draw(time_idx, n_children, shape)
+        return shared["noise"].to(device)
+
+    out = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        sl = slam_copy(probe, d)
+        sl.densify_draw = functools.partial(draw, device=d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sl._gs_densify(ga.to(d), dn.to(d), probe.frame_idx)
+        torch.cuda.synchronize()
+        out[name] = dict(slam=sl, densify_ms=(time.perf_counter() - t0) * 1e3)
+    card, cpu = out["card"]["slam"], out["cpu"]["slam"]
+    nd = card.n_active
+    if nd != cpu.n_active or nd == n:
+        raise AssertionError(f"gs_densify: n_active {n} -> card {nd}, cpu "
+                             f"{cpu.n_active}")
+    for k in PARAM_KEYS + ("timestep",):
+        got = getattr(card.state, k)[:nd].cpu()
+        ref = getattr(cpu.state, k)[:nd]
+        if not torch.allclose(got, ref, rtol=1e-5,
+                              atol=1e-5 * float(ref.abs().max())):
+            raise AssertionError(f"gs_densify {k}: max err "
+                                 f"{float((got - ref).abs().max())}")
+
+    kf = probe.keyframes.stacked_w2cs()
+    seen = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        sl = slam_copy(probe, d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seen[name] = sl._seen_mask(kf)[:n].cpu()
+        torch.cuda.synchronize()
+        seen[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        seen[f"{name}_removed"] = sl.prune_invisible()
+        torch.cuda.synchronize()
+        seen[f"{name}_prune_ms"] = (time.perf_counter() - t0) * 1e3
+    differ = torch.nonzero(seen["card"] != seen["cpu"]).flatten().tolist()
+    cpu_probe = slam_copy(probe, "cpu")
+    bad = unexplained_seen(cpu_probe.state, kf, probe.camera, differ)
+    if bad:
+        raise AssertionError(f"seen from the keyframes: slots {bad} differ "
+                             f"between the card and the CPU at no culling "
+                             f"boundary")
+    return dict(n_active=n, densified_n_active=nd,
+                densify_ms=out["card"]["densify_ms"],
+                densify_cpu_ms=out["cpu"]["densify_ms"],
+                keyframes=len(kf), seen=int(seen["card"].sum()),
+                seen_differ=len(differ), seen_ms=seen["card_ms"],
+                removed=seen["card_removed"],
+                removed_cpu=seen["cpu_removed"],
+                prune_ms=seen["card_prune_ms"])
+
+
 def device_ms_and_launches(fn):
     """Device time (ms, the profiler's kernel rows) and kernel launches of
     one call of fn, after a warm-up call."""
@@ -1945,6 +2329,17 @@ def main(argv=None):
         print(f"  navigation curve: {nav_row['completeness_curve']}")
         del _nav
 
+        # ---- optimized tracking through the entry point
+        t_result, _t_mapper, t_row = run_tracking(
+            os.path.join(HERE, "experiments", "chip_smoke"))
+        report["tracking"] = dict(t_row, timing=t_result["timing"])
+        phase("tracking", **fmt(t_row))
+        for name in ("tracking_mapping", "planning", "recon_metric",
+                     "occupancy"):
+            if name in t_result["timing"]:
+                print(f"  timer {name}: {t_result['timing'][name]}")
+        del _t_mapper
+
     # ---- slice (the map-query path)
     if not opts.kernels_only:
         cuda_blend.launches = 0
@@ -2072,6 +2467,13 @@ def main(argv=None):
           keyframes=len(probe.keyframes),
           seconds=f"{time.perf_counter() - t0:.2f}")
     entries = {}
+    if not opts.kernels_only:
+        # ---- tracking and the SLAM settings on the probe map, the card
+        # against the CPU twin
+        report["tracking_check"] = check_tracking(probe)
+        phase("tracking_check", **fmt(report["tracking_check"]))
+        report["slam_settings"] = check_slam_settings(probe)
+        phase("slam_settings", **fmt(report["slam_settings"]))
 
     # ---- kernel_blend -----------------------------------------------------
     params = probe.state.params()

@@ -58,9 +58,19 @@ The reconstruction metrics find their nearest neighbours on the mapper's
 device (engine/eval.py::_nn_dists: the 1-NN kernel on the card from 1e8
 pairs up, cKDTree below that and on the CPU).
 
-Not ported yet (ROADMAP.md): UPEN, the DINO gate, the cluster manager,
-pipelined planning, `explore.prune_invisible` and the navigation images;
-a config that turns one of them on raises NotImplementedError.
+Preemption, as in the JAX package: while test_navigation runs, SIGTERM
+and SIGUSR1 set the cluster manager's exit flag (utils/cluster.py), and
+so does its time budget.  The loop polls it at the top of every step,
+before any work of step t: it checkpoints step t - 1 with the sim's pose
+and resume_t = t, and requeues.  Resuming that checkpoint takes the
+uninterrupted run's actions.
+
+With `explore.prune_invisible`, each planning event first drops the
+Gaussians seen from no keyframe (GaussianSLAM.prune_invisible).
+
+Not ported yet (ROADMAP.md): UPEN, the DINO gate, pipelined planning and
+the navigation images; a config that turns one of them on raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -75,6 +85,7 @@ import torch
 from ..models.slam import GaussianSLAM
 from ..planning.planner import (AstarPlanner, LocalizationError,
                                 NoFrontierError, _host)
+from ..utils.cluster import ClusterStateManager, get_cluster_manager
 from ..utils.io import atomic_pickle, atomic_savez, valid_npz
 from ..utils.logging_utils import MetricsLogger, StepTimer
 from ..utils.pointcloud import GlobalPointCloud, backproject_depth
@@ -96,8 +107,6 @@ def _check_ported(cfg, policy_name: str):
     unported = [
         (bool(cfg.tpu.get("pipeline_planning", False)),
          "Pipelined planning (tpu.pipeline_planning)"),
-        (bool(cfg.explore.prune_invisible),
-         "explore.prune_invisible"),
         (bool(cfg.policy.save_nav_images),
          "The navigation images (policy.save_nav_images)"),
     ]
@@ -122,7 +131,8 @@ class ActiveMapper:
                  eval_dir: str | None = None, seed: int = 0,
                  traj_actions=None, scene_id: str | None = None,
                  object_scene: bool = False, dynamic_scene: bool = False,
-                 known_env_points=None, device="cuda"):
+                 known_env_points=None, device="cuda",
+                 cluster_manager: ClusterStateManager | None = None):
         self.cfg = cfg
         self.sim = sim
         self.scene = scene                    # BoxScene (GT access) or None
@@ -173,6 +183,10 @@ class ActiveMapper:
         self._pcl_1000_saved = False   # the step-1000 PLY export latch
         self._eval_curve = None
         self._resume_t = None
+        # preemption: polled at the top of every step (the process's
+        # manager unless one is given)
+        self.cm = (cluster_manager if cluster_manager is not None
+                   else get_cluster_manager())
         self.timer = StepTimer()
         self.mlog = MetricsLogger(self.eval_dir, cfg.run_name,
                                   use_wandb=bool(cfg.use_wandb))
@@ -331,6 +345,8 @@ class ActiveMapper:
         snap = getattr(self, "_points_snapshot", None)
         points = snap[1] if snap is not None and snap[0] == t else None
         with self.timer.phase("plan.global"):
+            if bool(self.cfg.explore.prune_invisible):
+                slam.prune_invisible()
             pose_fn = None if self.policy_name == "frontier" \
                 else slam.pose_eval_async
             gaussian_points = (points if points is not None
@@ -462,7 +478,13 @@ class ActiveMapper:
         poses (2000 for None) at the end.  Returns the result dict: steps,
         done_reason, the per-phase timer, planning_events and, with a
         scene, coverage_2d_pct, `eval`; with a ground-truth cloud, `recon`
-        and `auc`."""
+        and `auc`.  SIGTERM and SIGUSR1 set the cluster manager's exit
+        flag while it runs (see the module docstring)."""
+        with self.cm.armed():
+            return self._test_navigation(n_eval_poses, recon_gt_points,
+                                         on_step)
+
+    def _test_navigation(self, n_eval_poses, recon_gt_points, on_step):
         if self._resume_t is not None:
             obs = self.sim.get_observations()
             t, self._resume_t = self._resume_t, None
@@ -472,6 +494,12 @@ class ActiveMapper:
         c2w = obs["c2w"]
         done_reason = "max_steps"
         while t < self.max_steps:
+            if self.cm.should_exit():
+                # preempted: step t has not run, and the sim is at its
+                # pose, so the resume starts at t from there
+                self.save_checkpoint(max(t - 1, 0), sim_c2w=obs["c2w"],
+                                     resume_t=t)
+                self.cm.requeue()
             c2w = obs["c2w"]
             obj = getattr(self.sim, "dynamic_object", None)
             if self.dynamic_scene and obj is not None:
@@ -479,9 +507,11 @@ class ActiveMapper:
                 obs = self.sim.get_observations()
             obj_mask = self._object_mask(obs)
             # planning runs this step iff the queue is empty: take the
-            # Gaussian means before this step's mapping event
+            # Gaussian means before this step's mapping event (not under
+            # prune_invisible, which changes them before planning)
             if (not self.queue and self.traj_actions is None
-                    and self.policy_name not in ("random_walk", "frontier")):
+                    and self.policy_name not in ("random_walk", "frontier")
+                    and not bool(self.cfg.explore.prune_invisible)):
                 self._points_snapshot = (t, self.slam.gaussian_points)
             with self.timer.phase("tracking_mapping"):
                 self.slam.track_rgbd(obs["rgb"], obs["depth"],

@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.geometry import quat_to_rotmat
+
 PARAM_KEYS = ("means3D", "rgb_colors", "unnorm_rotations", "logit_opacities",
               "log_scales")
 
@@ -112,6 +114,51 @@ def prune_compact(state: GaussianState, keep) -> tuple[GaussianState,
     return new_state, order
 
 
+def gs_densify(state: GaussianState, grad_accum, denom, noise,
+               grad_thresh: float = 0.0002, split_scale: float = 0.05,
+               num_to_split_into: int = 2,
+               removal_opacity_threshold: float = 0.005,
+               time_idx: float = 0.0) -> GaussianState:
+    """Gaussian-splatting gradient densification: clone the small
+    high-gradient splats, split the large ones into n children, then drop
+    the split sources and the low-opacity slots with one prune_compact.
+
+    grad_accum / denom (C,): the summed |dL/d means3D| and its count of
+    nonzero steps from the mapping phase; a slot's gradient is their
+    ratio.  noise (n, C, 3): child i's standard normal draw, scaled by the
+    parent's scales and rotated by its rotation to offset the child's
+    mean; a child's log-scale is its parent's less log(0.8 n).  Clones
+    and children are written into the free tail (the caller makes room:
+    past the capacity they are dropped)."""
+    grads = torch.where(denom > 0, grad_accum / torch.clamp(denom, min=1),
+                        torch.zeros_like(grad_accum))
+    max_scale = torch.exp(state.log_scales).amax(dim=1)
+    high_grad = state.active & (grads >= grad_thresh)
+    to_clone = high_grad & (max_scale <= split_scale)
+    to_split = high_grad & (max_scale > split_scale)
+
+    params = state.params()
+    n = num_to_split_into
+    state, _dropped = add_gaussians(state, params, to_clone, time_idx)
+    R = quat_to_rotmat(params["unnorm_rotations"])
+    stds = torch.exp(params["log_scales"])
+    for i in range(n):
+        # R @ (noise * stds), written out (no matmul: f32 on every device)
+        offset = (R * (noise[i] * stds)[:, None, :]).sum(dim=-1)
+        child = dict(params, means3D=params["means3D"] + offset,
+                     log_scales=params["log_scales"] - float(
+                         torch.log(torch.tensor(0.8 * n))))
+        state, _dropped = add_gaussians(state, child, to_split, time_idx)
+
+    opac = torch.sigmoid(state.logit_opacities[:, 0])
+    keep = torch.ones(state.capacity, dtype=torch.bool,
+                      device=to_split.device)
+    keep[:to_split.shape[0]] = ~to_split
+    keep = keep & (opac >= removal_opacity_threshold)
+    state, _order = prune_compact(state, keep)
+    return state
+
+
 class AdamState(NamedTuple):
     mu: dict              # first moments, keyed like the params
     nu: dict              # second moments
@@ -151,6 +198,18 @@ def adam_permute(opt: AdamState, order) -> AdamState:
     """Permute moment slots after prune_compact."""
     return AdamState(mu={k: v[order] for k, v in opt.mu.items()},
                      nu={k: v[order] for k, v in opt.nu.items()},
+                     count=opt.count)
+
+
+def adam_reset_slots(opt: AdamState, dest) -> AdamState:
+    """Zero the moments of freshly added slots `dest` (int indices; those
+    past the capacity are dropped)."""
+    def zero_at(v):
+        v = v.clone()
+        v[dest[(dest >= 0) & (dest < v.shape[0])].long()] = 0
+        return v
+    return AdamState(mu={k: zero_at(v) for k, v in opt.mu.items()},
+                     nu={k: zero_at(v) for k, v in opt.nu.items()},
                      count=opt.count)
 
 

@@ -9,12 +9,20 @@ depth-L1 + L1/SSIM loss over a window of keyframes
 opacity prune, one compaction at the end).  The map is rendered at poses
 (`_render_rgbd`, `_render_pose`) and scored by Fisher information
 (`_fisher_batch`, `_pose_scores`).  `GaussianSLAM` keeps the reference's
-host API: init / track_rgbd (ground-truth poses) / render_at_pose(s) /
-compute_Hessian / compute_H_train / pose_eval(_async) / gaussian_points /
-save / load.
-Optimized tracking, gradient clone/split densification and the
-mesh-sharded mapping phase are not ported yet (ROADMAP.md) and raise
-NotImplementedError.
+host API: init / track_rgbd / render_at_pose(s) / compute_Hessian /
+compute_H_train / pose_eval(_async) / gaussian_points / prune_invisible /
+delete_gaussians_by_index / save / load.
+
+Without ground-truth poses (`tracking.use_gt_poses false`) each frame's
+pose is tracked (`_track_pose`): from the constant-velocity guess,
+`num_iters` Adam steps on (quaternion, translation) against the
+silhouette-masked SUM loss of one render (`_tracking_loss`, the Gaussians
+held fixed), keeping the best candidate, and twice the steps again when
+the depth loss stays at `depth_loss_thres` or above (`_tracking_phase`).
+With `mapping.use_gaussian_splatting_densification` each mapping event
+ends with a gradient clone/split (gaussian_state.gs_densify), whose
+children's offsets come from `densify_draw`.  The mesh-sharded mapping
+phase is not ported yet (ROADMAP.md) and raises NotImplementedError.
 
 Every tensor of a GaussianSLAM lives on its `device` ("cuda" by
 default); the ops pick the CUDA kernels for CUDA tensors and their plain
@@ -36,11 +44,13 @@ from ..ops.fisher import fisher_diag_batch
 from ..ops.image import calc_ssim
 from ..ops.projection import preprocess
 from ..ops.rasterize import RenderSettings, render, render_prebinned
-from ..utils.geometry import invert_se3
+from ..utils.geometry import (invert_se3, quat_mult, quat_to_rotmat,
+                              rotmat_to_quat)
 from ..utils.io import atomic_save_npy, atomic_savez
 from .gaussian_state import (GaussianState, PARAM_KEYS, adam_init, adam_step,
                              add_gaussians, empty_state, grow_state,
-                             prune_compact, state_from_numpy, state_to_numpy)
+                             gs_densify, prune_compact, state_from_numpy,
+                             state_to_numpy)
 from .keyframes import KeyframeBuffer, select_keyframes_overlap
 
 _NOT_PORTED = ("{} is not ported to the PyTorch package yet (ROADMAP.md, "
@@ -218,6 +228,97 @@ def _median(x):
     return 0.5 * (v[m // 2 - 1] + v[m // 2])
 
 
+class TrackingConfig(NamedTuple):
+    """Tracking hyperparameters, lifted from the YAML."""
+    num_iters: int
+    sil_thres: float
+    depth_weight: float
+    im_weight: float
+    lr_trans: float
+    lr_rot: float
+    use_sil_for_loss: bool
+    ignore_outlier_depth_loss: bool
+    depth_loss_thres: float
+    use_depth_loss_thres: bool
+
+
+def _tracking_loss(cam_q, cam_t, params, n_active, gt_color, gt_depth,
+                   camera: Camera, settings: RenderSettings,
+                   tc: TrackingConfig):
+    """The camera-only loss of one [r, g, b, z] render at the pose
+    (cam_q, cam_t): SUMs of the depth L1 and the color L1 over the mask
+    gt_depth > 0, finite render depth, and (with the options) an error
+    under 10 x its median and a silhouette (1 - final T) above
+    sil_thres.  The Gaussians are held fixed; only cam_q and cam_t carry
+    gradients.  Binned per call: the bins depend on the pose.  Returns
+    (loss, depth_l)."""
+    R = quat_to_rotmat(cam_q)
+    p = {k: v.detach() for k, v in params.items()}
+    means_cam = p["means3D"] @ R.T + cam_t
+    z = means_cam[:, 2:3]
+    colors = torch.cat([p["rgb_colors"], z], dim=-1)
+    active = torch.arange(means_cam.shape[0],
+                          device=means_cam.device) < n_active
+    out = render(camera, means_cam, torch.exp(p["log_scales"]),
+                 p["unnorm_rotations"],
+                 torch.sigmoid(p["logit_opacities"][:, 0]), colors,
+                 active=active, settings=settings)
+    depth = out["color"][..., 3]
+    im = out["color"][..., :3]
+    with torch.no_grad():
+        mask = (gt_depth > 0) & torch.isfinite(depth)
+        if tc.ignore_outlier_depth_loss:
+            err = torch.abs(gt_depth - depth) * (gt_depth > 0)
+            mask = mask & (err < 10.0 * _median(err))
+        if tc.use_sil_for_loss:
+            mask = mask & (1.0 - out["final_t"] > tc.sil_thres)
+    depth_l = torch.sum(torch.abs(gt_depth - depth) * mask)
+    im_l = torch.sum(torch.abs(im - gt_color) * mask[..., None])
+    return tc.depth_weight * depth_l + tc.im_weight * im_l, depth_l
+
+
+def _tracking_phase(state: GaussianState, cam_q0, cam_t0, gt_color,
+                    gt_depth, camera: Camera, settings: RenderSettings,
+                    tc: TrackingConfig):
+    """`num_iters` Adam steps on (cam_q, cam_t), in the JAX package's own
+    form (b1 0.9, b2 0.999, eps 1e-8, f32 bias corrections, lr_rot and
+    lr_trans), keeping the best candidate as the reference does: the loss
+    is taken at the pose before the step, and when it is the lowest so
+    far the pose after the step is kept.  No host read inside the loop.
+    Returns (best_q, best_t, best_loss, the last iteration's depth_l,
+    the losses (num_iters,))."""
+    params = state.params()
+    q, t = cam_q0.detach(), cam_t0.detach()
+    mq, vq = torch.zeros_like(q), torch.zeros_like(q)
+    mt, vt = torch.zeros_like(t), torch.zeros_like(t)
+    best_loss = torch.full((), float("inf"), device=q.device)
+    best_q, best_t = q, t
+    losses = []
+    for k in range(1, tc.num_iters + 1):
+        q, t = q.requires_grad_(), t.requires_grad_()
+        loss, depth_l = _tracking_loss(q, t, params, state.n_active,
+                                       gt_color, gt_depth, camera, settings,
+                                       tc)
+        gq, gt_ = torch.autograd.grad(loss, [q, t])
+        with torch.no_grad():
+            kk = torch.tensor(float(k))
+            bc1 = float(1.0 - torch.tensor(0.9) ** kk)
+            bc2 = float(1.0 - torch.tensor(0.999) ** kk)
+            mq = 0.9 * mq + 0.1 * gq
+            vq = 0.999 * vq + 0.001 * gq * gq
+            q = q - tc.lr_rot * (mq / bc1) / (torch.sqrt(vq / bc2) + 1e-8)
+            mt = 0.9 * mt + 0.1 * gt_
+            vt = 0.999 * vt + 0.001 * gt_ * gt_
+            t = t - tc.lr_trans * (mt / bc1) / (torch.sqrt(vt / bc2) + 1e-8)
+            loss = loss.detach()
+            better = loss < best_loss
+            best_loss = torch.where(better, loss, best_loss)
+            best_q = torch.where(better, q, best_q)
+            best_t = torch.where(better, t, best_t)
+        losses.append(loss)
+    return best_q, best_t, best_loss, depth_l.detach(), torch.stack(losses)
+
+
 def _backproject(depth, color, w2c, camera: Camera, ds: int):
     """World points, colors and projective scales of the ds-strided grid."""
     h, w = depth.shape
@@ -331,6 +432,23 @@ def _pose_scores(state: GaussianState, w2cs, h_train_inv, camera: Camera,
     return torch.sum(out["H"] * h_train_inv[None], dim=(1, 2))
 
 
+@torch.no_grad()
+def _seen_from_poses(state: GaussianState, w2cs, n_poses: int,
+                     camera: Camera):
+    """(capacity,) bool: the Gaussian has radius > 0 (the reference's
+    prune-invisible criterion) at any of the first n_poses poses of w2cs
+    (P, 4, 4); the rows past n_poses are padding and masked.
+    Preprocess only, one batched call over P poses."""
+    means_cam = (state.means3D @ w2cs[:, :3, :3].transpose(-1, -2)
+                 + w2cs[:, None, :3, 3])                      # (P, C, 3)
+    nb, cap = means_cam.shape[:2]
+    prep = preprocess(means_cam, torch.exp(state.log_scales).expand(
+        nb, cap, 3), state.unnorm_rotations.expand(nb, cap, 4), camera,
+        active=state.active)
+    pose_ok = torch.arange(nb, device=w2cs.device) < n_poses
+    return ((prep.radius > 0) & pose_ok[:, None]).any(dim=0)
+
+
 def _pad_poses(w2cs: np.ndarray, ck: int) -> np.ndarray:
     """Pad a pose chunk to ck poses with identities."""
     pad = ck - len(w2cs)
@@ -395,7 +513,20 @@ class GaussianSLAM:
             depth_error_ratio=float(mp.densify_dict.depth_error_ratio),
             downsample_pcd=int(cfg.downsample_pcd),
             frames_per_iter=int(tpu.get("mapping_frames_per_iter", 1)))
-        self.use_gt_poses = bool(cfg.tracking.use_gt_poses)
+        tr = cfg.tracking
+        self.tc = TrackingConfig(
+            num_iters=int(tr.num_iters),
+            sil_thres=float(tr.sil_thres),
+            depth_weight=float(tr.loss_weights.depth),
+            im_weight=float(tr.loss_weights.im),
+            lr_trans=float(tr.lrs.cam_trans),
+            lr_rot=float(tr.lrs.cam_unnorm_rots),
+            use_sil_for_loss=bool(tr.use_sil_for_loss),
+            ignore_outlier_depth_loss=bool(tr.ignore_outlier_depth_loss),
+            depth_loss_thres=float(tr.depth_loss_thres),
+            use_depth_loss_thres=bool(tr.use_depth_loss_thres))
+        self.use_gt_poses = bool(tr.use_gt_poses)
+        self.forward_prop = bool(tr.forward_prop)
         ma = tpu.get("mesh_axes", None)
         self.mesh_data = int(ma.data) if ma is not None else 1
         self.intrinsics = self.camera.intrinsics
@@ -511,9 +642,10 @@ class GaussianSLAM:
         return int(n_added)
 
     def track_rgbd(self, color, depth, gt_w2c=None, action=None):
-        """Per step: the pose (ground truth), a mapping event every
-        `map_every` frames, a keyframe every `keyframe_every` frames.  The
-        first call initializes the map instead."""
+        """Per step: the pose (the ground truth, or tracked without
+        use_gt_poses), a mapping event every `map_every` frames, a keyframe
+        every `keyframe_every` frames.  The first call initializes the map
+        instead."""
         if not self.initialized:
             self.init(color, depth, gt_w2c)
             return
@@ -535,8 +667,79 @@ class GaussianSLAM:
         self.frame_idx = time_idx
 
     def _track_pose(self, color, depth) -> np.ndarray:
-        raise NotImplementedError(_NOT_PORTED.format(
-            "Optimized tracking (tracking.use_gt_poses false)"))
+        """The frame's w2c by optimized tracking: from the constant-velocity
+        guess (with forward_prop and two poses; else the last pose), one
+        tracking phase, and when its last depth loss is at
+        depth_loss_thres or above (with use_depth_loss_thres) a second one
+        from its best pose with twice the steps, whose best is kept."""
+        dev = self.device
+        prev = torch.as_tensor(self.poses_w2c[-1], dtype=torch.float32,
+                               device=dev)
+        q0 = rotmat_to_quat(prev[:3, :3])
+        t0 = prev[:3, 3]
+        if self.forward_prop and len(self.poses_w2c) >= 2:
+            prev2 = torch.as_tensor(self.poses_w2c[-2], dtype=torch.float32,
+                                    device=dev)
+            q_prev2 = rotmat_to_quat(prev2[:3, :3])
+            conj = q_prev2 * torch.tensor([1.0, -1.0, -1.0, -1.0],
+                                          device=dev)
+            q0 = quat_mult(q0, quat_mult(conj, q0))
+            t0 = t0 + (t0 - prev2[:3, 3])
+        best_q, best_t, _loss, depth_l, _losses = _tracking_phase(
+            self.state, q0, t0, color, depth, self.camera, self.settings,
+            self.tc)
+        if (self.tc.use_depth_loss_thres
+                and float(depth_l) >= self.tc.depth_loss_thres):
+            best_q, best_t, _loss, _dl, _losses = _tracking_phase(
+                self.state, best_q, best_t, color, depth, self.camera,
+                self.settings,
+                self.tc._replace(num_iters=2 * self.tc.num_iters))
+        w2c = np.eye(4, dtype=np.float32)
+        w2c[:3, :3] = quat_to_rotmat(best_q).cpu().numpy()
+        w2c[:3, 3] = best_t.cpu().numpy()
+        return w2c
+
+    def densify_draw(self, time_idx: int, n_children: int,
+                     shape: tuple) -> torch.Tensor:
+        """The (n_children, *shape) standard normal draws of gs_densify's
+        children at frame time_idx, from a torch generator seeded by
+        time_idx on the SLAM's device.  (The JAX package draws from
+        jax.random.PRNGKey(time_idx), which torch cannot reproduce; tests
+        replace this method to feed its draws.)"""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(time_idx))
+        return torch.randn((n_children,) + tuple(shape), generator=gen,
+                           device=self.device)
+
+    def _gs_densify(self, ga, dn, time_idx: int):
+        """Gradient clone/split after a mapping event's Adam phase, from
+        its statistics ga / dn.  The clones and children are counted first
+        and the capacity grown to hold them all."""
+        dd = self.cfg.mapping.densify_dict
+        n_children = int(dd.num_to_split_into)
+        grad_thresh, split_scale = float(dd.grad_thresh), 0.05
+        st = self.state
+        with torch.no_grad():
+            mean_g = torch.where(dn > 0, ga / torch.clamp(dn, min=1),
+                                 torch.zeros_like(ga))
+            max_scale = torch.exp(st.log_scales).amax(dim=1)
+            high = st.active & (mean_g >= grad_thresh)
+            incoming = (int((high & (max_scale <= split_scale)).sum())
+                        + n_children * int((high & (max_scale > split_scale))
+                                           .sum()))
+        self._ensure_capacity(incoming)
+        pad = self.state.capacity - ga.shape[0]
+        if pad:
+            # grown: the new slots are empty and carry no gradient
+            ga, dn = (torch.cat([x, x.new_zeros(pad)]) for x in (ga, dn))
+        self.state = gs_densify(
+            self.state, ga, dn,
+            self.densify_draw(time_idx, n_children,
+                              tuple(self.state.means3D.shape)),
+            grad_thresh=grad_thresh, split_scale=split_scale,
+            num_to_split_into=n_children,
+            removal_opacity_threshold=float(dd.removal_opacity_threshold),
+            time_idx=float(time_idx))
 
     def _drain_densify_guard(self):
         """Read the previous densify's dropped and overflow counts (kept
@@ -562,11 +765,9 @@ class GaussianSLAM:
         self._maybe_bump_tile_capacity(int(overflow), n_renders)
 
     def _mapping_event(self, color, depth, w2c, time_idx):
-        """Densify, select the keyframe window, run the Adam phase."""
+        """Densify, select the keyframe window, run the Adam phase, and
+        with use_gaussian_splatting_densification clone and split."""
         cfgc = self.cfg
-        if bool(cfgc.mapping.use_gaussian_splatting_densification):
-            raise NotImplementedError(_NOT_PORTED.format(
-                "Gradient clone/split densification (gs_densify)"))
         if self.mesh_data > 1:
             raise NotImplementedError(_NOT_PORTED.format(
                 "The mesh-sharded mapping phase (tpu.mesh_axes.data > 1)"))
@@ -609,12 +810,14 @@ class GaussianSLAM:
         n_steps = max(self.mc.num_iters // self.mc.frames_per_iter, 1)
         choices = self.rng.integers(
             0, min(b, b_max), size=(n_steps, self.mc.frames_per_iter))
-        state, losses, _ga, _dn, overflow = _mapping_phase_impl(
+        state, losses, ga, dn, overflow = _mapping_phase_impl(
             self.state, torch.stack(win_colors), torch.stack(win_depths),
             self._w2c(np.stack(win_w2cs)), choices, self.camera,
             self.settings, self.mc)
         self.state = state
         self.last_losses = losses
+        if bool(cfgc.mapping.use_gaussian_splatting_densification):
+            self._gs_densify(ga, dn, time_idx)
         # binning truncation over the window's frames, read at the next
         # event so that this one is not waited for
         self._pending_bump = (overflow, b_max)
@@ -737,6 +940,52 @@ class GaussianSLAM:
     def pose_eval(self, poses, random_gaussian_params=None):
         """EIG score per candidate c2w pose: sum(H_pose / (H_train + 0.1))."""
         return self.pose_eval_async(poses, random_gaussian_params)()
+
+    def delete_gaussians_by_index(self, gaussian_index):
+        """Remove the Gaussians at the given slots (and compact)."""
+        keep = torch.ones(self.state.capacity, dtype=torch.bool,
+                          device=self.device)
+        keep[torch.as_tensor(np.asarray(gaussian_index, np.int64),
+                             device=self.device)] = False
+        self.state, _order = prune_compact(self.state, keep)
+        self._param_version += 1
+
+    def _seen_mask(self, w2cs: np.ndarray) -> torch.Tensor:
+        """(capacity,) bool: seen from any of the (P, 4, 4) w2c poses, a
+        pose_chunk of them at a time (the last chunk padded)."""
+        ck = self.pose_chunk
+        n_real = len(w2cs)
+        w2cs = _pad_poses(w2cs, -(-n_real // ck) * ck)
+        seen = torch.zeros(self.state.capacity, dtype=torch.bool,
+                           device=self.device)
+        for i in range(0, len(w2cs), ck):
+            seen |= _seen_from_poses(self.state, self._w2c(w2cs[i:i + ck]),
+                                     n_real - i, self.camera)
+        return seen
+
+    def prune_invisible(self, w2cs=None) -> int:
+        """Drop the Gaussians seen (radius > 0) from none of the given w2c
+        poses, the keyframes' by default; returns how many went.  The
+        poses are padded to a multiple of pose_chunk and scored a chunk at
+        a time.  When none goes, the state is left as it is, so the
+        caches keyed on it survive; when some go, the cached H_train is
+        permuted by the compaction's order (each row rides with its
+        Gaussian) rather than recomputed."""
+        w2cs = self.keyframes.stacked_w2cs() if w2cs is None else \
+            np.asarray(w2cs, np.float32)
+        if len(w2cs) == 0:
+            return 0
+        seen = self._seen_mask(w2cs)
+        removed = self.n_active - int(seen[:self.n_active].sum())
+        if removed == 0:
+            return 0
+        old_key = self._h_train_key()
+        cached = getattr(self, "_h_train_cache", None)
+        self.state, order = prune_compact(self.state, seen)
+        self._param_version += 1
+        if cached is not None and cached[0] == old_key:
+            self._h_train_cache = (self._h_train_key(), cached[1][order])
+        return removed
 
     def gs_pts_cnt(self):
         return max(self.n_active, 1)

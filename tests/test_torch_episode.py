@@ -253,7 +253,6 @@ def test_entry_point_refuses_unported_flags(flag, tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [("tpu.pipeline_planning", True),
-                                       ("explore.prune_invisible", True),
                                        ("policy.save_nav_images", True),
                                        ("policy.name", "upen_rrt")])
 def test_driver_refuses_unported_settings(key, value, tmp_path):

@@ -245,17 +245,14 @@ def test_render_psnr_matches(mapped):
 
 
 def test_unported_paths_raise(tmp_path):
+    """The mesh-sharded mapping phase still raises at the first mapping
+    event (tracking and gs_densify are ported: tests/test_torch_tracking.py
+    and tests/test_torch_slam_settings.py)."""
     cfg = make_cfg(tcfg, tmp_path)
-    cfg.tracking.use_gt_poses = False
+    cfg.tpu.mesh_axes.data = 2
     slam = tslam.GaussianSLAM(cfg, device="cpu")
     color = np.zeros((IMG, IMG, 3), np.float32)
     depth = np.ones((IMG, IMG), np.float32)
     slam.track_rgbd(color, depth, gt_w2c=np.eye(4, dtype=np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        slam.track_rgbd(color, depth, gt_w2c=np.eye(4, dtype=np.float32))
-    cfg.tracking.use_gt_poses = True
-    cfg.mapping.use_gaussian_splatting_densification = True
-    slam = tslam.GaussianSLAM(cfg, device="cpu")
-    slam.track_rgbd(color, depth, gt_w2c=np.eye(4, dtype=np.float32))
-    with pytest.raises(NotImplementedError, match="gs_densify"):
+    with pytest.raises(NotImplementedError, match="mesh-sharded.*ROADMAP"):
         slam.track_rgbd(color, depth, gt_w2c=np.eye(4, dtype=np.float32))
