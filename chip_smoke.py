@@ -132,6 +132,43 @@ Phases, one line each:
                    (the scripted init scan) part by more than 1 cm from
                    the JAX package's on the same frames (with the shipped
                    settings both drift on its 10-degree turns);
+  upen_episode     the UPEN baseline through the entry point
+                   (cli.run_scene with configs/mp3d_gaussian_UPEN_fbe.yaml)
+                   on fake_apartment_0 at full width (256x256, capacity
+                   131072, a 5 cm map; UPEN's 192x192 grid at 10 cm, its
+                   4-member ensemble on 64x64 crops), 100 steps, no
+                   evaluation: UPEN.observe every step, FBE goals at each
+                   replan, mapping events (K1, K2), the recon metric (the
+                   1-NN).  Launch counts zeroed just before and read just
+                   after: K1 and K2 must run, and UPEN must replan at
+                   least twice.  UPEN.observe and predict_action are
+                   wrapped (a CUDA sync on each side): prints the wall
+                   time, the timer, ms per observe and per predict_action,
+                   coverage_2d_pct and done_reason;
+  upen_check       on its final UPEN state: the ensemble's forward on the
+                   card (TF32 off) against the same weights on the CPU
+                   (relative to the logits' largest, 1e-4), the last
+                   frame's ego grid (to the bit) and register_ego on the
+                   card against the CPU (max difference, cells whose
+                   argmax differs), predict_action in RRT mode from one
+                   generator state on both (the same goal cell reported);
+                   times the 4-member forward and a batch-8 train_step;
+                   runs tools/train_predictors.py at 1 scene x 20 steps,
+                   1 epoch, 2 members (losses finite, its saved ensemble
+                   loaded into a fresh UPEN predicting as the trained one,
+                   1e-6);
+  dino_gate        the object episode with --dino_gate through the entry
+                   point (fake_apartment_5, --object_scene --dynamic_scene),
+                   20 steps, no evaluation: K1 and K2 must launch and the
+                   bank hold at least the init frame; prints the frames
+                   accepted and vetoed and the ms per gate decision;
+  nav_images       the FisherRF episode with policy.save_nav_images through
+                   the entry point on fake_apartment_0, 30 steps, no
+                   evaluation: at least one planning event with K3, a
+                   planning_vis/plan_<t>.png per planning event and
+                   nav_images/topdown_<t>.png at steps 0 and 20, each
+                   PNG's IHDR the size of its map; one render_bev timed
+                   and written as bev.png;
   slice            the map-query path at the same width: 60 scripted steps
                    through GaussianSLAM.track_rgbd (6 mapping events of
                    densify + 60 Adam steps of 2 frames), then renders at 8
@@ -301,6 +338,13 @@ TRACK_CHECK_ITERS = 8   # the card-against-CPU tracking phase
 TRACK_SHIFT = np.array([0.02, -0.01, 0.03], np.float32)
 RECON_SUB_PHASES = ("new_points", "upload", "nn1", "download", "recompute",
                     "surface", "running_min", "ckdtree")
+# the UPEN episode (configs/mp3d_gaussian_UPEN_fbe.yaml) on SCENE, the
+# DINO-gated object episode on OBJECT_SCENE, and the FisherRF episode
+# writing the navigation images on SCENE (topdown PNGs at steps 0 and 20)
+UPEN_STEPS = 100
+MIN_UPEN_REPLANS = 2
+DINO_STEPS = 20
+NAV_IMAGES_STEPS = 30
 
 
 T_START = time.perf_counter()
@@ -1038,18 +1082,55 @@ def check_planning_event(mapper, cap, report):
     return out
 
 
+def zero_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
+                                                      cuda_blend_bwd,
+                                                      cuda_fisher, cuda_knn)
+    for mod, names in ((cuda_blend, ["launches"]),
+                       (cuda_blend_bwd, ["launches", "launches_probes"]),
+                       (cuda_fisher, ["launches", "launches_full"]),
+                       (cuda_knn, ["launches"])):
+        for name in names:
+            setattr(mod, name, 0)
+
+
+def read_launches():
+    """The launches since zero_launches(), by kernel (K3's 20-wide
+    variant and the probe-batched K2 apart)."""
+    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
+                                                      cuda_blend_bwd,
+                                                      cuda_fisher, cuda_knn)
+    return dict(blend=cuda_blend.launches,
+                blend_bwd=cuda_blend_bwd.launches,
+                blend_bwd_probes=cuda_blend_bwd.launches_probes,
+                fisher=cuda_fisher.launches - cuda_fisher.launches_full,
+                fisher_nf20=cuda_fisher.launches_full,
+                nn1=cuda_knn.launches)
+
+
+def timed_entry_point(args, cfg, scene):
+    """cli.run_scene on the card with the launch counts zeroed just
+    before and read just after: (result, mapper, wall seconds,
+    launches)."""
+    import torch
+    from fisher_nerf_customized_tpu_torch import cli
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result, mapper = cli.run_scene(args, cfg, scene)
+    torch.cuda.synchronize()
+    return result, mapper, time.perf_counter() - t0, read_launches()
+
+
 def run_object_episode(log_dir):
     """The port's entry point with --object_scene --dynamic_scene on
     OBJECT_SCENE for OBJECT_STEPS steps, on the card (no evaluation):
     (result, mapper, wall seconds, launches by kernel, record).  The
     record holds the object mapping events' count and the arguments and
     scores of the last object path-score call."""
-    import torch
     from fisher_nerf_customized_tpu_torch import cli
     from fisher_nerf_customized_tpu_torch.models import object_slam
-    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
-                                                      cuda_blend_bwd,
-                                                      cuda_fisher, cuda_knn)
     args = cli.build_parser().parse_args([
         "--slam_config", os.path.join(HERE, "configs",
                                       "mp3d_gaussian_FR_eccv.yaml"),
@@ -1072,27 +1153,12 @@ def run_object_episode(log_dir):
 
     cls._object_mapping_event = counting
     object_slam.object_path_scores = recording
-    cuda_blend.launches = 0
-    cuda_blend_bwd.launches = 0
-    cuda_blend_bwd.launches_probes = 0
-    cuda_fisher.launches = 0
-    cuda_fisher.launches_full = 0
-    cuda_knn.launches = 0
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result, mapper = cli.run_scene(args, cfg, OBJECT_SCENE)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        result, mapper, wall_s, launches = timed_entry_point(args, cfg,
+                                                             OBJECT_SCENE)
     finally:
         cls._object_mapping_event = event_fn
         object_slam.object_path_scores = path_fn
-    launches = dict(blend=cuda_blend.launches,
-                    blend_bwd=cuda_blend_bwd.launches,
-                    blend_bwd_probes=cuda_blend_bwd.launches_probes,
-                    fisher=cuda_fisher.launches - cuda_fisher.launches_full,
-                    fisher_nf20=cuda_fisher.launches_full,
-                    nn1=cuda_knn.launches)
     return result, mapper, wall_s, launches, rec
 
 
@@ -1632,12 +1698,8 @@ def run_known_env(log_dir):
     (result, mapper, wall seconds, launches by kernel, record).  The
     record holds the step of the first object detection and three frames
     (depth on the card, c2w) whose novelty masks are checked after."""
-    import torch
     from fisher_nerf_customized_tpu_torch import cli
     from fisher_nerf_customized_tpu_torch.engine import driver
-    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
-                                                      cuda_blend_bwd,
-                                                      cuda_fisher, cuda_knn)
     args = cli.build_parser().parse_args([
         "--slam_config", os.path.join(HERE, "configs",
                                       "mp3d_gaussian_FR_eccv.yaml"),
@@ -1663,26 +1725,11 @@ def run_known_env(log_dir):
         return step_fn(self, obs, mask, t)
 
     cls._object_mask, cls._object_step = masking, stepping
-    for mod, names in ((cuda_blend, ["launches"]),
-                       (cuda_blend_bwd, ["launches", "launches_probes"]),
-                       (cuda_fisher, ["launches", "launches_full"]),
-                       (cuda_knn, ["launches"])):
-        for name in names:
-            setattr(mod, name, 0)
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result, mapper = cli.run_scene(args, cfg, OBJECT_SCENE)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        result, mapper, wall_s, launches = timed_entry_point(args, cfg,
+                                                             OBJECT_SCENE)
     finally:
         cls._object_mask, cls._object_step = mask_fn, step_fn
-    launches = dict(blend=cuda_blend.launches,
-                    blend_bwd=cuda_blend_bwd.launches,
-                    blend_bwd_probes=cuda_blend_bwd.launches_probes,
-                    fisher=cuda_fisher.launches - cuda_fisher.launches_full,
-                    fisher_nf20=cuda_fisher.launches_full,
-                    nn1=cuda_knn.launches)
     return result, mapper, wall_s, launches, rec
 
 
@@ -1793,8 +1840,7 @@ def run_tracking(log_dir):
     from fisher_nerf_customized_tpu_torch.engine.eval import evaluate_ate
     from fisher_nerf_customized_tpu_torch.models import slam as tslam
     from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
-                                                      cuda_blend_bwd,
-                                                      cuda_fisher, cuda_knn)
+                                                      cuda_blend_bwd)
     args = cli.build_parser().parse_args([
         "--slam_config", os.path.join(HERE, "configs",
                                       "mp3d_gaussian_FR_eccv.yaml"),
@@ -1833,26 +1879,12 @@ def run_tracking(log_dir):
 
     cls._track_pose, cls.track_rgbd = tracking, recording
     tslam._tracking_phase = phases
-    for mod, names in ((cuda_blend, ["launches"]),
-                       (cuda_blend_bwd, ["launches", "launches_probes"]),
-                       (cuda_fisher, ["launches", "launches_full"]),
-                       (cuda_knn, ["launches"])):
-        for name in names:
-            setattr(mod, name, 0)
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result, mapper = cli.run_scene(args, cfg, SCENE)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        result, mapper, wall_s, launches = timed_entry_point(args, cfg,
+                                                             SCENE)
     finally:
         cls._track_pose, cls.track_rgbd = track_fn, rgbd_fn
         tslam._tracking_phase = phase_fn
-    launches = dict(blend=cuda_blend.launches,
-                    blend_bwd=cuda_blend_bwd.launches,
-                    fisher=cuda_fisher.launches - cuda_fisher.launches_full,
-                    fisher_nf20=cuda_fisher.launches_full,
-                    nn1=cuda_knn.launches)
     est = np.stack(mapper.slam.poses_w2c)
     gt = np.stack([est[0]] + rec["gt_w2c"])
     if est.shape != gt.shape or not np.isfinite(est).all():
@@ -2118,6 +2150,317 @@ def check_slam_settings(probe):
                 prune_ms=seen["card_prune_ms"])
 
 
+def run_upen_episode(log_dir):
+    """The UPEN baseline through the entry point
+    (configs/mp3d_gaussian_UPEN_fbe.yaml) on SCENE for UPEN_STEPS steps, on
+    the card, no evaluation.  UPEN.observe and UPEN.predict_action are
+    wrapped here (a CUDA sync on each side) to time them; the observe
+    wrapper keeps the last frame and the grid before it.  Fails unless
+    the episode reaches its end, K1 and K2 run and UPEN replans at least
+    MIN_UPEN_REPLANS times.  Returns (result, mapper, row, record)."""
+    import torch
+    from fisher_nerf_customized_tpu_torch import cli
+    from fisher_nerf_customized_tpu_torch.models import upen as tupen
+    args = cli.build_parser().parse_args([
+        "--slam_config", os.path.join(HERE, "configs",
+                                      "mp3d_gaussian_UPEN_fbe.yaml"),
+        "--scenes_list", SCENE, "--max_steps", str(UPEN_STEPS),
+        "--eval_poses", "0", "--log_dir", log_dir, "--name", "upen"])
+    cfg = cli.load_config(args)
+    cls = tupen.UPEN
+    observe_fn, predict_fn = cls.observe, cls.predict_action
+    rec = dict(observe_s=0.0, observes=0, predict_s=0.0, modes=[],
+               last=None)
+
+    def observe(self, depth, intrinsics, pose, cam_height=1.25):
+        rec["last"] = dict(grid=self.sgrid.proj_grid.clone(),
+                           depth=torch.as_tensor(depth).clone(),
+                           intrinsics=np.asarray(intrinsics), pose=pose,
+                           cam_height=cam_height)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = observe_fn(self, depth, intrinsics, pose, cam_height)
+        torch.cuda.synchronize()
+        rec["observe_s"] += time.perf_counter() - t0
+        rec["observes"] += 1
+        return out
+
+    def predict(self, pose):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        goal, info = predict_fn(self, pose)
+        torch.cuda.synchronize()
+        rec["predict_s"] += time.perf_counter() - t0
+        rec["modes"].append(info["mode"])
+        return goal, info
+
+    cls.observe, cls.predict_action = observe, predict
+    try:
+        result, mapper, wall_s, launches = timed_entry_point(args, cfg, SCENE)
+    finally:
+        cls.observe, cls.predict_action = observe_fn, predict_fn
+    n_pred = len(rec["modes"])
+    row = dict(steps=result["steps"], done_reason=result["done_reason"],
+               wall_s=wall_s, steps_per_s=result["steps"] / wall_s,
+               upen_replans=n_pred,
+               upen_replans_with_path=result["planning_events"],
+               ms_per_observe=rec["observe_s"] * 1e3 / max(rec["observes"], 1),
+               ms_per_predict_action=rec["predict_s"] * 1e3 / max(n_pred, 1),
+               modes=",".join(sorted(set(rec["modes"]))),
+               coverage_2d_pct=result["coverage_2d_pct"],
+               n_gaussians=result["n_gaussians"],
+               **{f"launches_{k}": v for k, v in launches.items()})
+    if result["steps"] != UPEN_STEPS or rec["observes"] != UPEN_STEPS:
+        raise AssertionError(f"the UPEN episode ended at step "
+                             f"{result['steps']} ({result['done_reason']}), "
+                             f"{rec['observes']} observes")
+    if n_pred < MIN_UPEN_REPLANS:
+        raise AssertionError(f"{n_pred} UPEN replans, expected >= "
+                             f"{MIN_UPEN_REPLANS}")
+    if min(launches["blend"], launches["blend_bwd"]) <= 0:
+        raise AssertionError(f"UPEN episode: K1 or K2 not launched: "
+                             f"{launches}")
+    if not 0.0 < result["coverage_2d_pct"] <= 100.0:
+        raise AssertionError(f"coverage {result['coverage_2d_pct']}")
+    if not bool(torch.isfinite(mapper.upen.sgrid.proj_grid).all()):
+        raise AssertionError("non-finite UPEN grid")
+    return result, mapper, row, rec
+
+
+def cpu_upen(upen):
+    """A copy of a UPEN on the CPU: its members' weights, its grid and its
+    generator state."""
+    from fisher_nerf_customized_tpu_torch.models.upen import UPEN
+    out = UPEN(options=None, n_members=len(upen.ensemble.members),
+               grid_dim=upen.sgrid.grid_dim, crop=upen.crop,
+               cell_size=upen.cell_size, use_rrt=upen.use_rrt, device="cpu")
+    for a, b in zip(out.ensemble.members, upen.ensemble.members):
+        a.model.load_state_dict({k: v.cpu() for k, v in
+                                 b.model.state_dict().items()})
+    out.sgrid.origin_pose = upen.sgrid.origin_pose.copy()
+    out.sgrid.proj_grid = upen.sgrid.proj_grid.cpu()
+    out.step_count = upen.step_count
+    out.rng.bit_generator.state = upen.rng.bit_generator.state
+    return out
+
+
+def check_upen(mapper, rec, log_dir):
+    """On the UPEN episode's final state: the ensemble forward on the card
+    (TF32 off) against the same weights on the CPU, the last frame's ego
+    grid and register_ego on the card against the CPU, predict_action in
+    RRT mode from one generator state on both, the 4-member forward and a
+    batch-8 train_step timed, and tools/train_predictors.py at a small
+    size (its losses finite, its saved ensemble loaded into a fresh UPEN
+    predicting as the trained one).  Returns the phase's row."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.models import predictors
+    from fisher_nerf_customized_tpu_torch.models.semantic_grid import (
+        SemanticGrid)
+    from fisher_nerf_customized_tpu_torch.models.upen import (
+        UPEN, ego_grid_from_depth)
+    from fisher_nerf_customized_tpu_torch.tools import train_predictors
+    upen, dev = mapper.upen, mapper.device
+    host = cpu_upen(upen)
+    pose = mapper._pose_xzyaw(np.asarray(mapper.sim.c2w, np.float64))
+    x = upen.sgrid.crop_at(pose, upen.crop).permute(1, 2, 0)[None]
+    with torch.no_grad():
+        card = [m.logits(x).cpu() for m in upen.ensemble.members]
+        ref = [m.logits(x.cpu()) for m in host.ensemble.members]
+    fwd_err = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(card, ref))
+    row = dict(forward_rel_err=fwd_err)
+
+    last = rec["last"]
+    grids = {}
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        g = SemanticGrid(grid_dim=upen.sgrid.grid_dim,
+                         cell_size=upen.cell_size, device=d)
+        g.origin_pose = upen.sgrid.origin_pose
+        g.proj_grid = last["grid"].to(d)
+        ego = ego_grid_from_depth(last["depth"].to(d), last["intrinsics"],
+                                  grid_dim=upen.crop,
+                                  cell_size=upen.cell_size,
+                                  cam_height=last["cam_height"])
+        grids[tag] = (ego.cpu(), g.register_ego(ego, last["pose"]).cpu())
+    (ego_c, grid_c), (ego_h, grid_h) = grids["card"], grids["cpu"]
+    row.update(ego_equal=bool(torch.equal(ego_c, ego_h)),
+               register_max_diff=float((grid_c - grid_h).abs().max()),
+               register_argmax_cells_differ=int(
+                   (grid_c.argmax(0) != grid_h.argmax(0)).sum()),
+               register_equals_episode=bool(torch.equal(
+                   grid_c, upen.sgrid.proj_grid.cpu())))
+
+    use_rrt, state = upen.use_rrt, upen.rng.bit_generator.state
+    goals = []
+    for u in (upen, host):
+        u.use_rrt = True
+        u.rng.bit_generator.state = state
+        goal, info = u.predict_action(pose)
+        goals.append((np.asarray(goal).tolist(), info))
+    upen.use_rrt, upen.rng.bit_generator.state = use_rrt, state
+    row.update(rrt_goal_card=goals[0][0], rrt_goal_cpu=goals[1][0],
+               rrt_same_goal=goals[0] == goals[1],
+               rrt_paths=goals[0][1].get("n_paths"))
+
+    row["ensemble4_forward_ms"] = cuda_ms(
+        lambda: upen.ensemble.predict(x), 20)
+    pred = predictors.OccupancyPredictor(predictors.member_generator(0, 0),
+                                         device=dev)
+    x8 = x.repeat(8, 1, 1, 1)
+    y8 = x8.argmax(-1)
+
+    def train_step():
+        pred.train_step(x8, y8)                    # ends in a sync
+
+    train_step()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        train_step()
+    row["train_step_b8_ms"] = (time.perf_counter() - t0) * 1e2
+
+    out_dir = os.path.join(log_dir, "upen_trainer")
+    trained = {}
+    save_fn = predictors.PredictorEnsemble.save
+
+    def saving(self, dir_path):
+        trained["ens"] = self
+        return save_fn(self, dir_path)
+
+    predictors.PredictorEnsemble.save = saving
+    try:
+        t0 = time.perf_counter()
+        out = train_predictors.main([
+            "--out_dir", out_dir, "--n_scenes", "1", "--steps_per_scene",
+            "20", "--epochs", "1", "--ensemble_size", "2",
+            "--device", str(dev)])
+        row["trainer_s"] = time.perf_counter() - t0
+    finally:
+        predictors.PredictorEnsemble.save = save_fn
+    fresh = UPEN(options=None, n_members=2, seed=9, ensemble_dir=out_dir,
+                 device=dev)
+    with torch.no_grad():
+        a = fresh.ensemble.predict(x)
+        b = trained["ens"].predict(x)
+    row.update(trainer_losses=out["final_losses"],
+               trainer_val_miou=out["val_miou"],
+               trainer_n_train=out["n_train"],
+               trainer_reload_max_diff=max(float((p - q).abs().max())
+                                           for p, q in zip(a[:2], b[:2])))
+    if not fwd_err <= 1e-4:
+        raise AssertionError(f"ensemble forward on the card off the CPU by "
+                             f"{fwd_err} (relative)")
+    if not np.isfinite(out["final_losses"]).all():
+        raise AssertionError(f"trainer losses {out['final_losses']}")
+    if row["trainer_reload_max_diff"] > 1e-6:
+        raise AssertionError(f"the saved ensemble predicts apart from the "
+                             f"trained one: {row['trainer_reload_max_diff']}")
+    return row
+
+
+def run_dino_episode(log_dir):
+    """The object branch with the DINO gate through the entry point
+    (--object_scene --dynamic_scene --dino_gate) on OBJECT_SCENE for
+    DINO_STEPS steps, on the card, no evaluation.  Fails unless K1 and K2
+    run and the bank holds at least the init frame.  Returns the phase's
+    row."""
+    from fisher_nerf_customized_tpu_torch import cli
+    args = cli.build_parser().parse_args([
+        "--slam_config", os.path.join(HERE, "configs",
+                                      "mp3d_gaussian_FR_eccv.yaml"),
+        "--scenes_list", OBJECT_SCENE, "--max_steps", str(DINO_STEPS),
+        "--object_scene", "--dynamic_scene", "--dino_gate",
+        "--eval_poses", "0", "--log_dir", log_dir, "--name", "dino"])
+    cfg = cli.load_config(args)
+    result, mapper, wall_s, launches = timed_entry_point(args, cfg,
+                                                         OBJECT_SCENE)
+    log = mapper.dino_log
+    gate = result["timing"].get("dino_gate", {})
+    row = dict(steps=result["steps"], wall_s=wall_s,
+               decisions=len(log), accepted=sum(a for _t, a in log),
+               vetoed=sum(not a for _t, a in log),
+               bank_size=len(mapper.dino_bank) if mapper.dino_bank else 0,
+               ms_per_gate_decision=gate.get("mean_ms"),
+               object_n_active=(mapper.obj_slam.n_active
+                                if mapper.obj_slam is not None else 0),
+               **{f"launches_{k}": v for k, v in launches.items()})
+    if result["steps"] != DINO_STEPS:
+        raise AssertionError(f"the DINO episode ended at step "
+                             f"{result['steps']} ({result['done_reason']})")
+    if min(launches["blend"], launches["blend_bwd"]) <= 0:
+        raise AssertionError(f"DINO episode: K1 or K2 not launched: "
+                             f"{launches}")
+    if not log or not log[0][1] or row["bank_size"] < 1:
+        raise AssertionError(f"DINO gate: decisions {log}, bank "
+                             f"{row['bank_size']}")
+    return row
+
+
+def png_size(path):
+    """(width, height) from a PNG's IHDR."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return (int.from_bytes(head[16:20], "big"),
+            int.from_bytes(head[20:24], "big"))
+
+
+def run_nav_images(log_dir):
+    """The FisherRF episode with policy.save_nav_images through the entry
+    point on SCENE for NAV_IMAGES_STEPS steps, on the card, no evaluation:
+    at least one planning event, K3 launched, planning_vis/plan_<t>.png
+    for each planning event's step t and nav_images/topdown_<t>.png for
+    t = 0 and 20, each PNG's IHDR the size of its map; then one
+    render_bev timed and written as bev.png.  Returns the phase's row."""
+    import torch
+    from fisher_nerf_customized_tpu_torch import cli
+    from fisher_nerf_customized_tpu_torch.utils.raster import write_png
+    args = cli.build_parser().parse_args([
+        "--slam_config", os.path.join(HERE, "configs",
+                                      "mp3d_gaussian_FR_eccv.yaml"),
+        "--scenes_list", SCENE, "--max_steps", str(NAV_IMAGES_STEPS),
+        "--eval_poses", "0", "--log_dir", log_dir, "--name", "nav_images",
+        "--set", "policy.save_nav_images", "True"])
+    cfg = cli.load_config(args)
+    result, mapper, wall_s, launches = timed_entry_point(args, cfg, SCENE)
+    planner, d = mapper.planner, mapper.eval_dir
+    plan_size = (int(planner.grid_dim[0]), int(planner.grid_dim[1]))
+    top_size = mapper.habvis.gt_free.shape[::-1]
+    want = [(os.path.join(d, "planning_vis", f"plan_{e['t']:05d}.png"),
+             plan_size) for e in mapper.plan_log]
+    want += [(os.path.join(d, "nav_images", f"topdown_{t:05d}.png"),
+              top_size) for t in (0, 20)]
+    missing = [p for p, _s in want if not os.path.exists(p)]
+    wrong = [(p, png_size(p), s) for p, s in want
+             if os.path.exists(p) and png_size(p) != tuple(s)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bev = planner.render_bev(mapper.slam)["render"]
+    torch.cuda.synchronize()
+    bev_ms = (time.perf_counter() - t0) * 1e3
+    img = (bev.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+    write_png(os.path.join(d, "bev.png"), img)
+    row = dict(steps=result["steps"], wall_s=wall_s,
+               planning_events=result["planning_events"],
+               plan_pngs=len(os.listdir(os.path.join(d, "planning_vis")))
+               if os.path.isdir(os.path.join(d, "planning_vis")) else 0,
+               topdown_pngs=len(os.listdir(os.path.join(d, "nav_images")))
+               if os.path.isdir(os.path.join(d, "nav_images")) else 0,
+               plan_png_size=plan_size, render_bev_ms=bev_ms,
+               bev_mean=float(bev.mean()),
+               **{f"launches_{k}": v for k, v in launches.items()})
+    if result["steps"] != NAV_IMAGES_STEPS or result["planning_events"] < 1:
+        raise AssertionError(f"nav_images: {result['steps']} steps, "
+                             f"{result['planning_events']} planning events")
+    if launches["fisher"] <= 0:
+        raise AssertionError(f"nav_images: K3 not launched: {launches}")
+    if missing or wrong:
+        raise AssertionError(f"nav_images: missing {missing}, sizes {wrong}")
+    if not bool(torch.isfinite(bev).all()):
+        raise AssertionError("non-finite render_bev")
+    return row
+
+
 def device_ms_and_launches(fn):
     """Device time (ms, the profiler's kernel rows) and kernel launches of
     one call of fn, after a warm-up call."""
@@ -2339,6 +2682,26 @@ def main(argv=None):
             if name in t_result["timing"]:
                 print(f"  timer {name}: {t_result['timing'][name]}")
         del _t_mapper
+
+        # ---- the UPEN baseline and its checks, the DINO-gated object
+        # episode and the navigation images, each through the entry point
+        log_dir = os.path.join(HERE, "experiments", "chip_smoke")
+        u_result, u_mapper, u_row, u_rec = run_upen_episode(log_dir)
+        report["upen_episode"] = dict(u_row, timing=u_result["timing"])
+        phase("upen_episode", **fmt(u_row))
+        for name in ("tracking_mapping", "upen_observe", "planning",
+                     "occupancy", "recon_metric", "pcl", "sim_step"):
+            if name in u_result["timing"]:
+                print(f"  timer {name}: {u_result['timing'][name]}")
+        report["upen_check"] = check_upen(u_mapper, u_rec, log_dir)
+        phase("upen_check", **fmt({k: v for k, v in
+                                   report["upen_check"].items()
+                                   if not isinstance(v, list)}))
+        del u_mapper, u_rec
+        report["dino_gate"] = run_dino_episode(log_dir)
+        phase("dino_gate", **fmt(report["dino_gate"]))
+        report["nav_images"] = run_nav_images(log_dir)
+        phase("nav_images", **fmt(report["nav_images"]))
 
     # ---- slice (the map-query path)
     if not opts.kernels_only:

@@ -28,14 +28,23 @@ surfaces without the object, and the episode plans by coverage; with
 `--object_scene` the object is found by novelty against that cloud
 (pixels more than 5 cm from it) instead of by its semantic label.
 
+`--policy UPEN_fbe` (or configs/mp3d_gaussian_UPEN_fbe.yaml) and
+`UPEN_rrt` run the UPEN baseline; `--ensemble_dir DIR` loads its
+ensemble from DIR/member_<i>.pkl (tools/train_predictors.py's output,
+or the JAX package's; cfg.policy.ensemble_dir), else the ensemble is
+untrained.  `--dino_gate` gates object mapping by the distinctiveness
+of each object frame's patch descriptors (engine/dino_gate.py).
+`--set policy.save_nav_images True` writes the planning and top-down
+PNGs.
+
 The frontier-only pipeline (no Gaussian map, FBE goals, the planner's
 paths): `python -m fisher_nerf_customized_tpu_torch.main_navigation`
 with the same flags (main_navigation below); it writes
 pointcloud/global_pcl_<steps>.ply and result.json.
 
 Not ported yet (ROADMAP.md), and so raising NotImplementedError: `--sim
-habitat`, `--lpips_weights`, `--dino_gate`, `--dino_weights` and
-`--ensemble_dir`.
+habitat`, `--lpips_weights` and `--dino_weights` (the repository holds
+no weights and no habitat-sim).
 """
 from __future__ import annotations
 
@@ -80,12 +89,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="record a held-out PSNR/depth-MAE curve on a "
                         "fixed pose set every N steps (cfg.eval_every)")
     p.add_argument("--save_data", action="store_true")
-    p.add_argument("--ensemble_dir", default=None)
+    p.add_argument("--ensemble_dir", default=None,
+                   help="trained UPEN ensemble (member_<i>.pkl files); "
+                        "overrides policy.ensemble_dir")
     p.add_argument("--object_scene", action="store_true")
     p.add_argument("--dynamic_scene", action="store_true")
     p.add_argument("--known_env", action="store_true")
     p.add_argument("--lpips_weights", default=None)
-    p.add_argument("--dino_gate", action="store_true")
+    p.add_argument("--dino_gate", action="store_true",
+                   help="gate object mapping by descriptor "
+                        "distinctiveness (histogram descriptors)")
     p.add_argument("--dino_weights", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device of the episode (cuda unless asked)")
@@ -99,9 +112,7 @@ def build_parser() -> argparse.ArgumentParser:
 def _check_ported(args):
     unported = [(args.sim != "fake", f"--sim {args.sim}"),
                 (args.lpips_weights is not None, "--lpips_weights"),
-                (args.dino_gate or args.dino_weights is not None,
-                 "The DINO gate (--dino_gate, --dino_weights)"),
-                (args.ensemble_dir is not None, "--ensemble_dir")]
+                (args.dino_weights is not None, "--dino_weights")]
     for on, what in unported:
         if on:
             raise NotImplementedError(_NOT_PORTED.format(what))
@@ -128,6 +139,8 @@ def load_config(args):
             cx=args.img_size / 2, cy=args.img_size / 2))
     if args.eval_every is not None:
         cfg.eval_every = int(args.eval_every)
+    if args.ensemble_dir:
+        cfg.policy.ensemble_dir = args.ensemble_dir
     if args.debug:
         cfg.mapping.num_iters = min(int(cfg.mapping.num_iters), 10)
         cfg.num_frames = min(int(cfg.num_frames), 40)
@@ -218,7 +231,7 @@ def run_scene(args, cfg, scene_id: str):
                           dynamic_scene=args.dynamic_scene,
                           known_env_points=(known_env_points(scene)
                                             if args.known_env else None),
-                          device=args.device)
+                          device=args.device, dino_gate=args.dino_gate)
     if args.resume and args.checkpoint:
         mapper.resume(args.checkpoint)
     gt = _sample_gt(scene)

@@ -68,9 +68,29 @@ uninterrupted run's actions.
 With `explore.prune_invisible`, each planning event first drops the
 Gaussians seen from no keyframe (GaussianSLAM.prune_invisible).
 
-Not ported yet (ROADMAP.md): UPEN, the DINO gate, pipelined planning and
-the navigation images; a config that turns one of them on raises
-NotImplementedError.
+UPEN (a policy name starting with "upen", models/upen.py): every step
+registers its depth into UPEN's geocentric grid (cells of twice
+explore.cell_size), and each replan asks UPEN for a goal cell (FBE on
+the fused map, or with policy.with_rrt_planning or "rrt" in the name,
+RRT* paths scored by the ensemble's disagreement), which the planner's
+path and the action compiler reach; where UPEN's goal has no path, five
+random-walk actions.  The Gaussian map is still built (mapping events)
+but never scored.  As in the JAX package, UPEN's grid is not
+checkpointed: a resumed UPEN episode starts a new grid at its first step
+(the JAX package's fails there, ROADMAP.md fault t).
+
+The DINO gate (`dino_gate` on the object branch, engine/dino_gate.py):
+the object's first frame enters the descriptor bank; each later object
+frame maps the object only if its masked patch descriptors are distinct
+from the bank's (then they join it).  `dino_log` lists (step,
+accepted).  As in the JAX package the bank is not checkpointed.
+
+With policy.save_nav_images, each planning event writes
+planning_vis/plan_<frame>.png and every 20th step
+nav_images/topdown_<step>.png (engine/visualization.py).
+
+Not ported yet (ROADMAP.md): pipelined planning; a config that turns it
+on raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -89,7 +109,7 @@ from ..utils.cluster import ClusterStateManager, get_cluster_manager
 from ..utils.io import atomic_pickle, atomic_savez, valid_npz
 from ..utils.logging_utils import MetricsLogger, StepTimer
 from ..utils.pointcloud import GlobalPointCloud, backproject_depth
-from .actions import action_planning, rollout_path_poses
+from .actions import action_planning, compile_actions, rollout_path_poses
 from .eval import (IncrementalReconMetric, MetricsRecorder,
                    accuracy_comp_ratio_from_pcl, eval_navigation)
 from .path_eval import acc_step_indices, path_eig_scores
@@ -98,21 +118,12 @@ _NOT_PORTED = ("{} is not ported to the PyTorch package yet (ROADMAP.md, "
                "queue 1)")
 
 
-def _check_ported(cfg, policy_name: str):
+def _check_ported(cfg):
     """Raise NotImplementedError for a setting whose code path is not
     ported."""
-    if policy_name.lower().startswith("upen"):
+    if bool(cfg.tpu.get("pipeline_planning", False)):
         raise NotImplementedError(_NOT_PORTED.format(
-            f"The UPEN policy {policy_name!r}"))
-    unported = [
-        (bool(cfg.tpu.get("pipeline_planning", False)),
-         "Pipelined planning (tpu.pipeline_planning)"),
-        (bool(cfg.policy.save_nav_images),
-         "The navigation images (policy.save_nav_images)"),
-    ]
-    for on, what in unported:
-        if on:
-            raise NotImplementedError(_NOT_PORTED.format(what))
+            "Pipelined planning (tpu.pipeline_planning)"))
 
 
 class TornCheckpointError(RuntimeError):
@@ -132,14 +143,15 @@ class ActiveMapper:
                  traj_actions=None, scene_id: str | None = None,
                  object_scene: bool = False, dynamic_scene: bool = False,
                  known_env_points=None, device="cuda",
-                 cluster_manager: ClusterStateManager | None = None):
+                 cluster_manager: ClusterStateManager | None = None,
+                 dino_gate: bool = False):
         self.cfg = cfg
         self.sim = sim
         self.scene = scene                    # BoxScene (GT access) or None
         self.scene_id = scene_id or os.path.basename(eval_dir or "") \
             or "fake_scene"
         self.policy_name = policy_name or str(cfg.policy.name)
-        _check_ported(cfg, self.policy_name)
+        _check_ported(cfg)
         self.eval_dir = eval_dir or os.path.join(cfg.workdir, cfg.run_name)
         os.makedirs(self.eval_dir, exist_ok=True)
 
@@ -154,9 +166,18 @@ class ActiveMapper:
         self.object_metrics = MetricsRecorder(f"{cfg.criterion}_OA",
                                               self.scene_id)
         self._obj_pcl_parts: list[np.ndarray] = []
+        # the DINO gate of object mapping (the histogram extractor)
+        self.dino_bank = None
+        self._dino_extractor = None
+        self.dino_log: list[tuple[int, bool]] = []
+        if self.object_scene and dino_gate:
+            from .dino_gate import DinoBank, PatchDescriptorExtractor
+            self.dino_bank = DinoBank()
+            self._dino_extractor = PatchDescriptorExtractor()
 
         self.slam = GaussianSLAM(cfg, eval_dir=self.eval_dir, device=device)
-        self.planner = AstarPlanner(cfg, seed=seed, device=device)
+        self.planner = AstarPlanner(cfg, seed=seed, device=device,
+                                    eval_dir=self.eval_dir)
         # C-space clearance from the embodied agent radius
         agent_r = getattr(scene, "agent_radius",
                           getattr(sim, "agent_radius", 0.0))
@@ -192,8 +213,19 @@ class ActiveMapper:
                                   use_wandb=bool(cfg.use_wandb))
         self.habvis = None
         # one entry per planning event that chose a path: its step, the
-        # path scores (path EIG, or None for 'frontier') and the choice
+        # path scores (path EIG, or None for 'frontier' and UPEN) and the
+        # choice
         self.plan_log: list[dict] = []
+        self.upen = None
+        if self.policy_name.lower().startswith("upen"):
+            from ..models.upen import UPEN
+            self.upen = UPEN(options=None, cfg=cfg, seed=seed,
+                             cell_size=float(cfg.explore.cell_size) * 2,
+                             use_rrt=bool(cfg.policy.with_rrt_planning)
+                             or "rrt" in self.policy_name.lower(),
+                             ensemble_dir=str(cfg.policy.get(
+                                 "ensemble_dir", "")) or None,
+                             device=device)
 
     # -- setup --------------------------------------------------------------
     def _init_episode(self):
@@ -314,10 +346,26 @@ class ActiveMapper:
             self.queue.extend(init_object_policy(mask, self.turn_angle,
                                                  mask.shape[1]))
             self.object_tracking = True
+            if self.dino_bank is not None:
+                self._dino_decide(obs, mask, t, force=True)
             return
+        allow_map = True
+        if self.dino_bank is not None:
+            allow_map = self._dino_decide(obs, mask, t)
         self.obj_slam.track_rgbd(obs["rgb"], obs["depth"], gt_w2c=w2c,
-                                 obj_mask_2d=mask, step=t)
+                                 obj_mask_2d=mask, step=t,
+                                 allow_map=allow_map)
         self.object_tracking = True
+
+    def _dino_decide(self, obs, mask, t, force: bool = False) -> bool:
+        """The DINO gate on one object frame (its RGB pulled to the host
+        once): whether the frame joins the bank, and so may map the
+        object; `force` admits the object's first frame."""
+        with self.timer.phase("dino_gate"):
+            descs = self._dino_extractor(_host(obs["rgb"]), mask)
+            accepted = self.dino_bank.add_if_distinct(descs, force=force)
+        self.dino_log.append((int(t), bool(accepted)))
+        return accepted
 
     def record_object_metrics(self, t, gt_object_points,
                               dist_thresh: float = 0.01):
@@ -353,7 +401,8 @@ class ActiveMapper:
                                else slam.gaussian_points)
             finish = planner.global_planning(
                 pose_fn, gaussian_points, None, expansion=expansion,
-                agent_pose=current_agent_pose[:3, 3], defer_scores=True)
+                agent_pose=current_agent_pose[:3, 3], defer_scores=True,
+                visualize=bool(self.cfg.policy.save_nav_images))
             if finish is None or isinstance(finish, tuple):
                 return None, None
         # the candidate Fisher batch is in flight: launch the sweep field
@@ -434,11 +483,52 @@ class ActiveMapper:
                                   actions=list(path_actions[best])))
         return path_actions[best], paths_arr[best]
 
+    @staticmethod
+    def _pose_xzyaw(c2w):
+        fwd = c2w[:3, :3] @ np.array([0.0, 0.0, 1.0])
+        return (float(c2w[0, 3]), float(c2w[2, 3]),
+                float(np.arctan2(fwd[0], fwd[2])))
+
+    def _replan_upen(self, c2w, t) -> bool:
+        """UPEN's goal cell -> world xz -> the planner's path -> actions
+        queued; False where UPEN gives no goal or it has no path."""
+        goal_cell, _info = self.upen.predict_action(self._pose_xzyaw(c2w))
+        if goal_cell is None:
+            return False
+        gh, gw = self.upen.sgrid.grid_dim
+        origin = self.upen.sgrid.origin_pose
+        wx = (float(goal_cell[0]) - gw / 2) * self.upen.cell_size + origin[0]
+        wz = (float(goal_cell[1]) - gh / 2) * self.upen.cell_size + origin[1]
+        start = self.planner.convert_to_map(c2w[[0, 2], 3])[[1, 0]]
+        try:
+            self.planner.setup_start(start, self.slam.gaussian_points, t)
+        except LocalizationError:
+            return False
+        finish = self.planner.convert_to_map((wx, wz))[[1, 0]]
+        paths = self.planner.planning(finish)
+        if len(paths) == 0:
+            return False
+        actions = compile_actions(paths, c2w, c2w, self.planner.cam_height,
+                                  self.planner.convert_to_world,
+                                  self.forward_step, self.turn_angle,
+                                  self.queue_size)
+        if not actions:
+            return False
+        self.queue.extend(actions)
+        self.plan_log.append(dict(t=t, scores=None, best=0,
+                                  actions=list(actions)))
+        return True
+
     def _replan(self, c2w: np.ndarray, t: int):
         expansion = 1
         for _attempt in range(10):
             if self.policy_name == "random_walk":
                 self.queue.extend(self._random_walk_actions())
+                return
+            if self.upen is not None:
+                if self._replan_upen(c2w, t):
+                    return
+                self.queue.extend(self._random_walk_actions()[:5])
                 return
             if self.object_tracking and self.obj_slam is not None:
                 # the object-observing path takes over while an object is
@@ -510,6 +600,7 @@ class ActiveMapper:
             # Gaussian means before this step's mapping event (not under
             # prune_invisible, which changes them before planning)
             if (not self.queue and self.traj_actions is None
+                    and self.upen is None
                     and self.policy_name not in ("random_walk", "frontier")
                     and not bool(self.cfg.explore.prune_invisible)):
                 self._points_snapshot = (t, self.slam.gaussian_points)
@@ -523,6 +614,15 @@ class ActiveMapper:
                 self.planner.update_occ_map(obs["depth"], c2w, t)
                 if self.planner.covered is not None:
                     self.planner.cover_fov_2d(c2w)
+            if self.upen is not None:
+                with self.timer.phase("upen_observe"):
+                    pose = self._pose_xzyaw(c2w)
+                    # the grid is not checkpointed: a resumed episode
+                    # starts a new one at its first step (ROADMAP fault t)
+                    if t == 0 or self.upen.sgrid.origin_pose is None:
+                        self.upen.init(pose)
+                    self.upen.observe(obs["depth"], self.sim.intrinsics, pose,
+                                      cam_height=float(c2w[1, 3]))
             with self.timer.phase("pcl"):
                 self.global_pcl.add_frame(obs["depth"], self.sim.intrinsics,
                                           c2w, color=obs["rgb"])
@@ -533,7 +633,7 @@ class ActiveMapper:
                     break
                 action = int(self.traj_actions[t])
             else:
-                if (self.policy_name == "gaussians_based"
+                if (self.policy_name == "gaussians_based" and self.upen is None
                         and len(self.queue) <= max(self.plan_watermark + 2,
                                                    int(self.cfg.map_every)
                                                    + 2)):
@@ -603,6 +703,9 @@ class ActiveMapper:
                     self.habvis.update_fow_sim(obs["c2w"])
                 if self.dynamic_scene and obj is not None:
                     self.habvis.update_object(obj.translation)
+                if bool(self.cfg.policy.save_nav_images) and t % 20 == 0:
+                    self.habvis.save_vis_seen(
+                        os.path.join(self.eval_dir, "nav_images"), t)
             # the checkpoint cadence is offset to the middle of the mapping
             # window, where the device is idle and the state pull is a copy
             ck_off = (int(self.cfg.map_every) // 2) % self.checkpoint_interval

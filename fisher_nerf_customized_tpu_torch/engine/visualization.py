@@ -1,20 +1,27 @@
-"""Top-down fog-of-war map: the 2D coverage of an episode.
+"""Top-down episode images: the fog-of-war map and the occupancy PNG.
 
-Counterpart of the JAX package's engine/visualization.py MapVisualizer
-(the reference's HabitatVisualizer): a ground-truth navigable grid
-aligned with the planner's map and a fog-of-war mask that each step's
-field-of-view wedge reveals; coverage_2d is the revealed share of the
-navigable cells.  The wedge is drawn by utils/raster.fill_poly, cv2's
-fillPoly without cv2.  state_dict/load_state_dict carry the mask and the
-agent's cells through a checkpoint, and update_object records a dynamic
-object's cells.  Drawing the map and the PNG export are not ported yet
-(ROADMAP.md).
+Counterpart of the JAX package's engine/visualization.py (the
+reference's HabitatVisualizer and its planning images): MapVisualizer
+keeps a ground-truth navigable grid aligned with the planner's map and a
+fog-of-war mask that each step's field-of-view wedge reveals
+(coverage_2d is the revealed share of the navigable cells), the agent's
+and a dynamic object's cells, and draws them (render, save_vis_seen);
+save_occ_map_png draws a planning event's occupancy map with its
+candidate scores.  The drawing is cv2's without cv2 (utils/raster.py:
+fill_poly, draw_lines, fill_circle, dilate3), and the PNGs are written
+by raster.write_png as RGB, the pixels the JAX package's
+cv2.imwrite(img[..., ::-1]) stores.  state_dict/load_state_dict carry
+the mask and the cells through a checkpoint.  write_trajectory_video is
+not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-from ..utils.raster import fill_poly
+from ..utils.raster import (dilate3, draw_lines, fill_circle, fill_poly,
+                            write_png)
 
 
 class MapVisualizer:
@@ -62,6 +69,29 @@ class MapVisualizer:
         total = self.gt_free.sum()
         return float(self.fow_mask.sum() / max(total, 1) * 100.0)
 
+    def render(self) -> np.ndarray:
+        """The (Gz, Gx, 3) uint8 RGB map: navigable cells grey, revealed
+        ones green, the agent's trajectory red, the object's blue, the
+        agent a filled circle."""
+        img = np.full(self.gt_free.shape + (3,), 30, np.uint8)
+        img[self.gt_free] = (200, 200, 200)
+        img[self.fow_mask] = (120, 180, 120)
+        for cells, color in ((self.traj, (200, 60, 60)),
+                             (self.obj_traj, (60, 60, 200))):
+            if len(cells) > 1:
+                pts = np.asarray(cells, np.int64)
+                img[draw_lines(self.gt_free.shape, pts[:-1],
+                               pts[1:]) > 0] = color
+        if self.traj:
+            img[fill_circle(self.gt_free.shape, self.traj[-1], 3) > 0] = \
+                (255, 0, 0)
+        return img
+
+    def save_vis_seen(self, out_dir: str, t: int):
+        os.makedirs(out_dir, exist_ok=True)
+        write_png(os.path.join(out_dir, f"topdown_{t:05d}.png"),
+                  self.render())
+
     # checkpoint hooks
     def state_dict(self):
         return dict(fow_mask=self.fow_mask, traj=np.asarray(self.traj),
@@ -72,3 +102,30 @@ class MapVisualizer:
         self.traj = [tuple(p) for p in np.asarray(d["traj"]).reshape(-1, 2)]
         self.obj_traj = [tuple(p) for p in
                          np.asarray(d["obj_traj"]).reshape(-1, 2)]
+
+
+def save_occ_map_png(occ_map, path: str, candidates=None, scores=None,
+                     agent_cell=None, frontier=None):
+    """A planning event's image: the (3, Gz, Gx) occupancy map's labels
+    (occupied white, free grey), the target frontier dilated (green), the
+    candidates' cells coloured by their normalized score (blue to red,
+    drawn in order) and the agent's cell (red), as an RGB PNG."""
+    index = np.asarray(occ_map).argmax(axis=0)
+    shape = index.shape
+    img = np.zeros(shape + (3,), np.uint8)
+    img[index == 1] = (255, 255, 255)
+    img[index == 2] = (80, 80, 80)
+    if frontier is not None and np.asarray(frontier).sum() > 0:
+        img[dilate3(np.asarray(frontier) > 0) > 0] = (0, 255, 0)
+    if candidates is not None and scores is not None and len(scores) > 0:
+        s = np.asarray(scores, np.float64)
+        rng = s.max() - s.min()
+        s = (s - s.min()) / (rng if rng > 0 else 1.0)
+        for (x, z), v in zip(np.asarray(candidates), s):
+            img[fill_circle(shape, (int(x), int(z)), 1) > 0] = (
+                int(255 * v), 0, int(255 * (1 - v)))
+    if agent_cell is not None:
+        img[fill_circle(shape, (int(agent_cell[0]), int(agent_cell[1])),
+                        2) > 0] = (255, 0, 0)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    write_png(path, img)

@@ -5,7 +5,8 @@ AstarPlanner's API): init / init_known_env / update_occ_map /
 cover_fov_2d / build_frontier_cells / build_frontiers / setup_start /
 planning / global_planning / global_planning_frontier /
 global_object_planning / add_obstacle / convert_to_map /
-convert_to_world / pose_eval (a uniform stub) / save / load.  The
+convert_to_world / pose_eval (a uniform stub) / render_bev / save /
+load.  The
 (3, Gz, Gx) occupancy map stays on the planner's device and takes one
 vote update per frame (planning/occupancy.py); a planning event pulls its
 uint8 label map once and runs the morphology, connected components and
@@ -21,9 +22,16 @@ space not yet covered.  As in the JAX package, the coverage mask is not
 checkpointed: a planner restored by load() has none, and plans from
 the unknown cells of its map.
 
-Not ported yet (ROADMAP.md): render_bev and the planning PNGs.
+With `visualize` and an eval_dir, global_planning writes each event's
+occupancy map with its candidates' scores to
+<eval_dir>/planning_vis/plan_<frame>.png (engine/visualization.py).
+render_bev renders the Gaussian map from above (K1 on the card), the
+Gaussians above the camera's height left out.
 """
+
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -59,8 +67,10 @@ def camera_from_intrinsics(K, width: int, height: int) -> Camera:
 
 
 class AstarPlanner:
-    def __init__(self, slam_config, seed: int = 0, device="cuda"):
+    def __init__(self, slam_config, seed: int = 0, device="cuda",
+                 eval_dir: str | None = None):
         self.cfg = slam_config
+        self.eval_dir = eval_dir
         ex = slam_config["explore"]
         pol = slam_config["policy"]
         self.device = torch.device(device)
@@ -529,7 +539,7 @@ class AstarPlanner:
 
     def global_planning(self, pose_evaluation_fn=None, gaussian_points=None,
                         goal_proposal_fn=None, expansion=1, agent_pose=None,
-                        defer_scores=False):
+                        defer_scores=False, visualize=False):
         """Frontier-driven candidate poses, scored by EIG, best 20 first.
 
         Returns (poses (<=20, 4, 4), scores, random_gaussian_params) as
@@ -590,6 +600,8 @@ class AstarPlanner:
         def finish():
             scores, poses = resolve()
             scores, poses = _host(scores), _host(poses)
+            if visualize and self.eval_dir:
+                self._save_planning_vis(poses, scores)
             order = np.argsort(-scores, kind="stable")[:20]
             poses, scores = poses[order], scores[order]
             return poses, scores, random_gaussian_params
@@ -597,6 +609,36 @@ class AstarPlanner:
         if defer_scores:
             return finish
         return finish()
+
+    def _save_planning_vis(self, candidate_poses, scores):
+        """The occupancy map with the candidates' scores and the target
+        frontier, as planning_vis/plan_<frame>.png."""
+        from ..engine.visualization import save_occ_map_png
+        xz = np.asarray(candidate_poses)[:, [0, 2], 3]
+        gx = np.clip(((xz[:, 0] - self.map_center[0]) / self.cell_size
+                      + self.grid_dim[0] // 2).astype(np.int64),
+                     0, self.grid_dim[0] - 1)
+        gz = np.clip(((xz[:, 1] - self.map_center[1]) / self.cell_size
+                      + self.grid_dim[1] // 2).astype(np.int64),
+                     0, self.grid_dim[1] - 1)
+        save_occ_map_png(_host(self.occ_map),
+                         os.path.join(self.eval_dir, "planning_vis",
+                                      f"plan_{self.frame_idx:05d}.png"),
+                         candidates=np.stack([gx, gz], axis=1),
+                         scores=scores,
+                         agent_cell=(self.cam_pos[1], self.cam_pos[0]),
+                         frontier=self.target_frontier)
+
+    def render_bev(self, slam):
+        """Render the SLAM map from 7 m above the map centre, looking down,
+        on a white background, the Gaussians at or above the camera's
+        height left out (GaussianSLAM.render_at_pose's outputs)."""
+        bev_c2w = np.array([[1.0, 0, 0, 0], [0, 0, -1, 0],
+                            [0, 1, 0, 0], [0, 0, 0, 1]], np.float32)
+        bev_c2w[:3, 3] = [self.map_center[0], 7.0, self.map_center[1]]
+        xyz = slam.gaussian_points
+        mask = xyz[:, 1] < self.cam_height
+        return slam.render_at_pose(bev_c2w, white_bg=True, mask=mask)
 
     def global_planning_frontier(self, expansion=1, agent_pose=None):
         """The frontier-only (FBE) goal, no scoring: (goal (1, 2) world xz,

@@ -242,24 +242,70 @@ def test_entry_point_runs_an_episode(tmp_path, capsys):
     assert "completeness_ratio" in steps[0]
 
 
+# flags and settings of code paths the port now has: each case holds that
+# the setting is accepted where it was refused
+PORTED_FLAGS = (["--dino_gate"], ["--ensemble_dir", "ensemble"],
+                ["--object_scene", "--dino_gate"])
+PORTED_SETTINGS = (("policy.save_nav_images", True),
+                   ("policy.name", "upen_rrt"))
+
+
+def small_sim():
+    cam = TCamera(fx=float(IMG), fy=float(IMG), cx=IMG / 2, cy=IMG / 2,
+                  width=IMG, height=IMG)
+    return TSim(TScene(), cam, device="cpu")
+
+
 @pytest.mark.parametrize("flag", [["--sim", "habitat"], ["--dino_gate"],
                                   ["--dino_weights", "dino.pth"],
                                   ["--lpips_weights", "alex.pth"],
                                   ["--ensemble_dir", "ensemble"],
                                   ["--object_scene", "--dino_gate"]])
 def test_entry_point_refuses_unported_flags(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--device", "cpu", "--log_dir", str(tmp_path)] + flag)
+    """An unported flag raises NotImplementedError.  The ported ones are
+    accepted: --dino_gate parses and reaches the driver (its bank made on
+    the object branch only), and --ensemble_dir to a missing directory
+    raises FileNotFoundError, as the JAX package's loader does."""
+    argv = ["--device", "cpu", "--log_dir", str(tmp_path)]
+    if flag not in PORTED_FLAGS:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.main(argv + flag)
+        return
+    if flag[0] == "--ensemble_dir":
+        missing = str(tmp_path / flag[1])
+        args = cli.build_parser().parse_args(argv + [flag[0], missing])
+        cli._check_ported(args)
+        assert cli.load_config(args).policy.ensemble_dir == missing
+        with pytest.raises(FileNotFoundError):
+            cli.main(argv + [flag[0], missing, "--policy", "UPEN_fbe",
+                             "--img_size", "48", "--set", "tpu.capacity",
+                             "8192"])
+        return
+    args = cli.build_parser().parse_args(argv + flag)
+    cli._check_ported(args)
+    assert args.dino_gate
+    mapper = tdriver.ActiveMapper(port_cfg(episode_cfg(tmp_path)),
+                                  small_sim(), device="cpu",
+                                  object_scene=args.object_scene,
+                                  dino_gate=args.dino_gate)
+    assert (mapper.dino_bank is not None) == args.object_scene
 
 
 @pytest.mark.parametrize("key,value", [("tpu.pipeline_planning", True),
                                        ("policy.save_nav_images", True),
                                        ("policy.name", "upen_rrt")])
 def test_driver_refuses_unported_settings(key, value, tmp_path):
+    """Pipelined planning raises NotImplementedError; the navigation
+    images and the UPEN policies are accepted (the driver constructs)."""
     cfg = port_cfg(episode_cfg(tmp_path))
     cfg.merge_from_list([key, value])
-    cam = TCamera(fx=float(IMG), fy=float(IMG), cx=IMG / 2, cy=IMG / 2,
-                  width=IMG, height=IMG)
-    sim = TSim(TScene(), cam, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdriver.ActiveMapper(cfg, sim, device="cpu")
+    if (key, value) not in PORTED_SETTINGS:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tdriver.ActiveMapper(cfg, small_sim(), device="cpu")
+        return
+    mapper = tdriver.ActiveMapper(cfg, small_sim(), device="cpu")
+    if key == "policy.name":
+        assert mapper.upen is not None and mapper.upen.use_rrt
+    else:
+        assert mapper.upen is None and mapper.cfg.policy.save_nav_images
+        assert mapper.planner.eval_dir == mapper.eval_dir

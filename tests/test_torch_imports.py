@@ -1,7 +1,7 @@
-"""The PyTorch port and chip_smoke.py must not import JAX or anything of
-the JAX package (not even its JAX-free modules), nor OpenCV (cv2): the
-port runs on a machine without JAX and without cv2 (utils/raster.py has
-the port's own form of each cv2 call)."""
+"""The PyTorch port and chip_smoke.py must not import JAX (nor flax or
+optax) or anything of the JAX package (not even its JAX-free modules),
+nor OpenCV (cv2): the port runs on a machine without JAX and without cv2
+(utils/raster.py has the port's own form of each cv2 call)."""
 import re
 from pathlib import Path
 
@@ -11,7 +11,7 @@ ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "fisher_nerf_customized_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|cv2\b"
+    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|cv2\b|flax\b|optax\b"
     r"|fisher_nerf_customized_tpu\b(?!_torch))", re.MULTILINE)
 # the episode slice's modules: they must exist (test_no_jax_imports checks
 # them with every other file of the port)
@@ -33,6 +33,12 @@ OBJECT_MODULES = [
 KNOWN_ENV_MODULES = [
     "ops/knn.py", "ops/cuda_knn.py", "engine/navigator.py",
     "main_navigation.py", "planning/astar.py"]
+# the UPEN, DINO gate and navigation images slice's modules
+UPEN_MODULES = [
+    "planning/rrt.py", "planning/frontier_search.py", "models/networks.py",
+    "models/predictors.py", "models/semantic_grid.py", "models/upen.py",
+    "engine/dino_gate.py", "engine/visualization.py",
+    "envs/offline_dataset.py", "tools/train_predictors.py"]
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -48,7 +54,7 @@ def test_episode_modules_are_checked():
     port = ROOT / "fisher_nerf_customized_tpu_torch"
     assert all(port / m in FILES
                for m in EPISODE_MODULES + EVAL_MODULES + OBJECT_MODULES
-               + KNOWN_ENV_MODULES)
+               + KNOWN_ENV_MODULES + UPEN_MODULES)
 
 
 def test_forbidden_pattern_catches_jax_imports():
@@ -56,9 +62,12 @@ def test_forbidden_pattern_catches_jax_imports():
            "from fisher_nerf_customized_tpu.ops import fisher",
            "import fisher_nerf_customized_tpu",
            "    from fisher_nerf_customized_tpu.config import node",
-           "import cv2", "    import cv2  # noqa", "from cv2 import line"]
+           "import cv2", "    import cv2  # noqa", "from cv2 import line",
+           "import flax.linen as nn", "from flax.core import FrozenDict",
+           "import optax"]
     good = ["import torch", "from fisher_nerf_customized_tpu_torch.ops "
             "import fisher", "from .ops import binning",
-            "from ..utils.raster import fill_poly", "import cv2x"]
+            "from ..utils.raster import fill_poly", "import cv2x",
+            "import flaxen"]
     assert all(FORBIDDEN.search(s) for s in bad)
     assert not any(FORBIDDEN.search(s) for s in good)
