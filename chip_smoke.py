@@ -27,6 +27,20 @@ Phases, one line each:
                    ground-truth cloud.  Prints the wall time, steps per
                    second, the per-phase timer, coverage_2d_pct and
                    done_reason;
+  pipelined_episode the same episode with tpu.pipeline_planning through
+                   the entry point, 100 steps, no evaluation: stage-1
+                   preparations at the queue's watermark and FakeSim's
+                   prefetch.  Launch counts zeroed just before and read
+                   just after: K1, K2, K3 (both widths) and the 1-NN must
+                   run.  Prints the wall time and the planning,
+                   plan.global, plan.global.wait, prefetch, sim_step and
+                   tracking_mapping seconds beside the episode's (and its
+                   wall less its eval), the preparations made, consumed
+                   and dropped as stale, the prefetched frames taken and
+                   the coverage; fails unless a preparation and a
+                   prefetched frame were taken and a prefetched frame
+                   equals a plain FakeSim's step at the same pose (four
+                   actions, to the bit);
   eval             the episode's evaluation: PSNR, SSIM, lpips_proxy,
                    depth MAE (all poses and seen poses), the recon metrics
                    and AUC, the recon updates' seconds split into their
@@ -169,6 +183,31 @@ Phases, one line each:
                    nav_images/topdown_<t>.png at steps 0 and 20, each
                    PNG's IHDR the size of its map; one render_bev timed
                    and written as bev.png;
+  legacy_planning  the legacy in-SLAM planning API on the episode's final
+                   map: get_top_down_map, uncertainty_scores (H_train
+                   anew), a frontier round and a DBSCAN round of
+                   global_planning (256 candidates, the planner's free
+                   cells as navigability), DFS_acq_score_planning at depth
+                   6, each timed with its K3 launches, with the frontier
+                   points and the DBSCAN clusters; _pose_point_scores on 8
+                   candidates against the CPU twin (same
+                   argmax, Spearman >= 0.99, the per-point max off on at
+                   most 1e-3 of the live Gaussians) and the DFS at depth 3
+                   against the CPU twin (the same actions);
+  ddppo            the DD-PPO network at habitat's width (256x256 depth,
+                   GroupNorm ResNet50, hidden 512) on seeded parameters, 3
+                   steps on the card against the CPU twin (logits, value,
+                   hidden state within 1e-4 of max(its largest, 1), the
+                   same argmax), ms per act with TF32 off, DdppoPolicy
+                   without a checkpoint taking PathFollower's action;
+  render_sh        render_sh at degree 3 over the episode's live Gaussians
+                   at its latest keyframe (256x256): the image and the
+                   L1 loss's gradient to the SH coefficients on the card
+                   against the CPU twin, K1 and K2 launched once each, ms
+                   of the forward and of the forward with the backward;
+  occ_map          OccupancyMap at the planner's grid over the episode's
+                   first 10 frames on the card and the CPU: labels equal
+                   cell for cell, ms per update;
   slice            the map-query path at the same width: 60 scripted steps
                    through GaussianSLAM.track_rgbd (6 mapping events of
                    densify + 60 Adam steps of 2 frames), then renders at 8
@@ -345,6 +384,16 @@ UPEN_STEPS = 100
 MIN_UPEN_REPLANS = 2
 DINO_STEPS = 20
 NAV_IMAGES_STEPS = 30
+# the pipelined episode's timer phases, reported beside the synchronous
+# episode's; the legacy planning API's DFS depths (timed, and held to the
+# CPU twin); the DD-PPO steps; the OccupancyMap's frames
+PIPE_PHASES = ("planning", "plan.global", "plan.global.wait", "prefetch",
+               "sim_step", "tracking_mapping")
+LEGACY_DFS_DEPTH = 6
+LEGACY_DFS_CHECK_DEPTH = 3
+LEGACY_CHECK_POSES = 8
+DDPPO_STEPS = 3
+OCC_MAP_FRAMES = 10
 
 
 T_START = time.perf_counter()
@@ -2461,6 +2510,412 @@ def run_nav_images(log_dir):
     return row
 
 
+def run_pipelined_episode(log_dir, sync_timing, sync_wall_s):
+    """The FisherRF episode with tpu.pipeline_planning through the entry
+    point on SCENE for EPISODE_STEPS steps, on the card, no evaluation;
+    then a prefetched frame against a plain FakeSim's step at the same
+    pose, for four actions (to the bit).  Fails unless the episode reaches
+    its end, a stage-1 preparation and a prefetched frame were taken, K1,
+    K2, K3 (both widths) and the 1-NN ran, and the frames are equal.
+    Returns (result, mapper, row): the row has the synchronous episode's
+    PIPE_PHASES (`sync_timing`) and its wall time less its evaluation
+    beside the pipelined one's."""
+    import torch
+    from fisher_nerf_customized_tpu_torch import cli
+    args = cli.build_parser().parse_args([
+        "--slam_config", os.path.join(HERE, "configs",
+                                      "mp3d_gaussian_FR_eccv.yaml"),
+        "--scenes_list", SCENE, "--max_steps", str(EPISODE_STEPS),
+        "--eval_poses", "0", "--log_dir", log_dir, "--name", "pipelined",
+        "--set", "tpu.pipeline_planning", "True"])
+    cfg = cli.load_config(args)
+    result, mapper, wall_s, launches = timed_entry_point(args, cfg, SCENE)
+    sim, timing = mapper.sim, result["timing"]
+    hits = sim.prefetch_hits
+    plain, _scene = cli.make_sim(args, cfg, SCENE)
+    frames_equal = []
+    for a in (1, 2, 1, 3):
+        plain.set_pose(sim.c2w)
+        sim.prefetch(a)
+        got, ref = sim.step(a), plain.step(a)
+        frames_equal.append(bool(
+            torch.equal(got["rgb"], ref["rgb"])
+            and torch.equal(got["depth"], ref["depth"])
+            and np.array_equal(got["c2w"], ref["c2w"])))
+    if sim.prefetch_hits != hits + 4:
+        raise AssertionError("the check's prefetched frames were not taken")
+
+    def total(tm, name):
+        return tm[name]["total_s"] if name in tm else 0.0
+
+    row = dict(steps=result["steps"], done_reason=result["done_reason"],
+               wall_s=wall_s,
+               sync_wall_less_eval_s=sync_wall_s - total(sync_timing,
+                                                         "eval"),
+               planning_events=result["planning_events"],
+               preps_made=mapper.plan_preps["made"],
+               preps_consumed=mapper.plan_preps["consumed"],
+               preps_dropped=mapper.plan_preps["dropped"],
+               prefetched_frames_taken=hits,
+               prefetch_frames_equal=all(frames_equal),
+               coverage_2d_pct=result["coverage_2d_pct"],
+               n_gaussians=result["n_gaussians"],
+               **{f"{name}_s": total(timing, name) for name in PIPE_PHASES},
+               **{f"sync_{name}_s": total(sync_timing, name)
+                  for name in PIPE_PHASES},
+               **{f"launches_{k}": v for k, v in launches.items()})
+    if result["steps"] != EPISODE_STEPS:
+        raise AssertionError(f"the pipelined episode ended at step "
+                             f"{result['steps']} ({result['done_reason']})")
+    if mapper.plan_preps["consumed"] < 1 or hits < 1:
+        raise AssertionError(f"pipelined episode: preparations "
+                             f"{mapper.plan_preps}, prefetched frames taken "
+                             f"{hits}")
+    if not all(frames_equal):
+        raise AssertionError(f"a prefetched frame differs from a plain "
+                             f"step's: {frames_equal}")
+    if min(launches[k] for k in ("blend", "blend_bwd", "fisher",
+                                 "fisher_nf20", "nn1")) <= 0:
+        raise AssertionError(f"pipelined episode: a kernel was not "
+                             f"launched: {launches}")
+    if not 0.0 < result["coverage_2d_pct"] <= 100.0:
+        raise AssertionError(f"coverage {result['coverage_2d_pct']}")
+    return result, mapper, row
+
+
+def timed_k3(fn):
+    """(fn's output, its wall ms between synchronizes, K3 launches of
+    either width while it ran)."""
+    import torch
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = read_launches()
+    return out, ms, got["fisher"] + got["fisher_nf20"]
+
+
+def frac_off(got, ref, rtol, atol):
+    """The share of entries with |got - ref| > rtol |ref| + atol, and the
+    largest difference."""
+    err = (got - ref).abs()
+    return (float((err > rtol * ref.abs() + atol).float().mean()),
+            float(err.max()))
+
+
+def check_legacy_planning(mapper):
+    """The legacy in-SLAM planning API on the main episode's final map and
+    occupancy: get_top_down_map, uncertainty_scores (H_train anew), a
+    frontier round and a DBSCAN round of global_planning with the
+    planner's navigability (a candidate's cell free in the label map),
+    DFS_acq_score_planning at LEGACY_DFS_DEPTH from the agent's pose, each
+    timed with its K3 launches; then _pose_point_scores on
+    LEGACY_CHECK_POSES of the rounds' candidates on the card against the
+    CPU twin (the same
+    argmax, Spearman >= 0.99; the per-point max with at most 1e-3 of the
+    live Gaussians off by more than rtol 1e-3 plus 1e-6 of the largest),
+    and the DFS at LEGACY_DFS_CHECK_DEPTH on the card against the CPU twin
+    (the same actions; the CPU copy takes the card's H_train).  The map,
+    the SLAM's random stream and round counter are left as they were."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.models import slam as tslam
+    from fisher_nerf_customized_tpu_torch.utils import clustering
+    slam, planner = mapper.slam, mapper.planner
+    rng_state, selection = slam.rng.bit_generator.state, slam.selection
+    n_before = slam.n_active
+    labels = planner._occ_index_np()
+
+    def navigable(p):
+        cx, cz = planner.convert_to_map((p[0], p[2]))
+        return (0 <= cz < labels.shape[0] and 0 <= cx < labels.shape[1]
+                and labels[cz, cx] == 2)
+
+    c2w = np.asarray(mapper.sim.c2w, np.float64)
+    row = {}
+    occ, row["top_down_ms"], _k = timed_k3(slam.get_top_down_map)
+    slam._h_train_cache = None
+    unc, row["uncertainty_ms"], row["uncertainty_k3"] = timed_k3(
+        slam.uncertainty_scores)
+    frontier, _free = planner.build_frontiers(slam.gaussian_points)
+    calls = []
+    dbscan = clustering.dbscan
+
+    def recording(points, eps=0.1, min_samples=5):
+        lab = dbscan(points, eps, min_samples)
+        calls.append(dict(points=len(points), clusters=int(lab.max()) + 1,
+                          clustered=int((lab >= 0).sum())))
+        return lab
+
+    clustering.dbscan = recording
+    rounds = []
+    try:
+        slam.selection = 0
+        for tag, kw in (("frontier", dict(frontier=frontier)),
+                        ("dbscan", {})):
+            (scores, c2ws), ms, k3 = timed_k3(lambda: slam.global_planning(
+                navigable, agent_pose=c2w, **kw))
+            n = 0 if scores is None else len(scores)
+            row.update({f"{tag}_ms": ms, f"{tag}_k3": k3,
+                        f"{tag}_candidates": n})
+            if n and not bool(torch.isfinite(scores).all()):
+                raise AssertionError(f"legacy {tag} round: non-finite scores")
+            rounds.append(c2ws)
+    finally:
+        clustering.dbscan = dbscan
+    row.update(frontier_points=0 if frontier is None else len(frontier),
+               dbscan_calls=len(calls),
+               dbscan_points=sum(c["points"] for c in calls),
+               dbscan_clusters=sum(c["clusters"] for c in calls),
+               dbscan_clustered=sum(c["clustered"] for c in calls),
+               n_active_before=n_before, n_active_after=slam.n_active,
+               uncertainty_max=float(unc[:slam.n_active].max()),
+               top_down_occupied_cells=int((occ[1] > 0).sum()))
+    if frontier is None or rounds[0] is None:
+        raise AssertionError("legacy planning: the frontier round found no "
+                             "navigable candidate")
+    actions, row["dfs_ms"], row["dfs_k3"] = timed_k3(
+        lambda: slam.DFS_acq_score_planning(
+            [c2w], navigable, max_depth=LEGACY_DFS_DEPTH,
+            forward_step=mapper.forward_step, turn_angle=mapper.turn_angle))
+    row["dfs_actions"] = "".join(map(str, actions))
+    if len(actions) != LEGACY_DFS_DEPTH:
+        raise AssertionError(f"DFS actions {actions}")
+
+    # _pose_point_scores: the card against the CPU twin on one pose chunk
+    cands = np.concatenate([r.cpu().numpy() for r in rounds if r is not None])
+    ck = LEGACY_CHECK_POSES
+    w2cs = tslam._pad_poses(np.linalg.inv(cands[:ck]).astype(np.float32), ck)
+    n_real = min(len(cands), ck)
+    h_inv = 1.0 / (slam.compute_H_train() + 0.1)
+    args = (slam.fisher_camera, slam.fisher_settings, slam.fisher_full_chain,
+            slam.fisher_grad_value)
+    cpu_state = tslam.GaussianState(*(x.cpu() for x in slam.state))
+    vs, pm = tslam._pose_point_scores(slam.state, slam._w2c(w2cs), n_real,
+                                      h_inv, *args)
+    t0 = time.perf_counter()
+    vs_cpu, pm_cpu = tslam._pose_point_scores(
+        cpu_state, torch.from_numpy(w2cs), n_real, h_inv.cpu(), *args)
+    row["point_scores_cpu_s"] = time.perf_counter() - t0
+    got, ref = vs[:n_real].cpu().numpy(), vs_cpu[:n_real].numpy()
+    rank = lambda x: np.argsort(np.argsort(x))          # noqa: E731
+    spearman = float(np.corrcoef(rank(got), rank(ref))[0, 1]) \
+        if n_real > 1 else 1.0
+    live = slice(0, slam.n_active)
+    pm, pm_cpu = pm[live].cpu(), pm_cpu[live]
+    off, err = frac_off(pm, pm_cpu, 1e-3, 1e-6 * float(pm_cpu.abs().max()))
+    row.update(point_scores_poses=n_real, view_spearman=spearman,
+               view_rel_err_max=float(np.max(np.abs(got - ref)
+                                             / np.abs(ref))),
+               same_argmax=int(got.argmax()) == int(ref.argmax()),
+               point_max_off_frac=off, point_max_err=err,
+               point_max_largest=float(pm_cpu.abs().max()))
+    if spearman < 0.99 or not row["same_argmax"] or off > 1e-3:
+        raise AssertionError(f"_pose_point_scores off the CPU twin: {row}")
+
+    # the DFS on the card against the CPU twin
+    cpu = slam_copy(slam, "cpu")
+    cpu._h_train_cache = (cpu._h_train_key(), slam.compute_H_train().cpu())
+    kw = dict(max_depth=LEGACY_DFS_CHECK_DEPTH,
+              forward_step=mapper.forward_step, turn_angle=mapper.turn_angle)
+    card_actions = slam.DFS_acq_score_planning([c2w], navigable, **kw)
+    t0 = time.perf_counter()
+    cpu_actions = cpu.DFS_acq_score_planning([c2w], navigable, **kw)
+    row["dfs_cpu_s"] = time.perf_counter() - t0
+    row["dfs_check_actions"] = "".join(map(str, card_actions))
+    if card_actions != cpu_actions:
+        raise AssertionError(f"DFS at depth {LEGACY_DFS_CHECK_DEPTH}: card "
+                             f"{card_actions}, CPU {cpu_actions}")
+    slam.rng.bit_generator.state, slam.selection = rng_state, selection
+    if slam.n_active != n_before:
+        raise AssertionError("legacy planning changed the episode's map")
+    return row
+
+
+def check_ddppo():
+    """The DD-PPO network at habitat's width (256x256 depth, GN-ResNet50,
+    hidden 512, 2 LSTM layers) on seeded parameters: DDPPO_STEPS steps of
+    one episode on the card against the CPU twin (logits, value and the
+    hidden state (h and c) each within 1e-4 of the larger of its largest
+    magnitude and 1: relative where the LSTM's cell state grows past 1,
+    absolute on the small values; the same argmax); ms per
+    act on the card (TF32 off); DdppoPolicy without a checkpoint taking
+    PathFollower's action."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.planning import (ddppo_net,
+                                                           local_policy)
+    params = ddppo_net.init_params(0)
+    nets = dict(card=ddppo_net.from_params(params, 512, 256, device="cuda"),
+                cpu=ddppo_net.from_params(params, 512, 256, device="cpu"))
+    state = {k: (ddppo_net.zero_state(512, device=n.critic.fc.weight.device),
+                 torch.zeros(1, dtype=torch.int32,
+                             device=n.critic.fc.weight.device))
+             for k, n in nets.items()}
+    rng = np.random.default_rng(0)
+    errs = dict(logits=0.0, value=0.0, hidden=0.0)
+    largest = dict(errs)
+    same_argmax = True
+    for step in range(DDPPO_STEPS):
+        depth = rng.uniform(0, 1, (1, 256, 256, 1)).astype(np.float32)
+        goal = np.asarray([[3.0 - step, 0.5 - 0.4 * step]], np.float32)
+        mask = np.asarray([0.0 if step == 0 else 1.0], np.float32)
+        outs = {}
+        for k, net in nets.items():
+            dev = net.critic.fc.weight.device
+            hidden, prev = state[k]
+            logits, value, hidden = net(
+                torch.from_numpy(depth).to(dev),
+                torch.from_numpy(goal).to(dev), hidden, prev,
+                torch.from_numpy(mask).to(dev))
+            prev = logits.argmax(-1).to(torch.int32)
+            state[k] = (hidden, prev)
+            outs[k] = (logits.cpu(), value.cpu(), hidden.cpu())
+        for name, got, ref in zip(errs, outs["card"], outs["cpu"]):
+            errs[name] = max(errs[name], float((got - ref).abs().max()))
+            largest[name] = max(largest[name], float(ref.abs().max()))
+        same_argmax &= bool(torch.equal(outs["card"][0].argmax(-1),
+                                        outs["cpu"][0].argmax(-1)))
+    net = nets["card"]
+    d = torch.from_numpy(depth).cuda()
+    g = torch.from_numpy(goal).cuda()
+    m = torch.ones(1, device="cuda")
+    hidden, prev = state["card"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    act_ms = cuda_ms(lambda: ddppo_net.act(net, d, g, hidden, prev, m,
+                                           generator=gen), 20)
+    pol = local_policy.DdppoPolicy(device="cuda")
+    follower = local_policy.PathFollower()
+    prng = np.random.default_rng(1)
+    follows = []
+    for _ in range(8):
+        c2w = np.eye(4)
+        yaw = prng.uniform(-np.pi, np.pi)
+        c2w[:3, :3] = [[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                       [-np.sin(yaw), 0, np.cos(yaw)]]
+        goal_xz = tuple(prng.uniform(-3, 3, 2))
+        follows.append(pol.plan(depth[0], goal_xz, c2w=c2w)
+                       == follower.next_action(c2w, goal_xz))
+    row = dict(steps=DDPPO_STEPS,
+               **{f"{k}_max_err": v for k, v in errs.items()},
+               **{f"{k}_largest": v for k, v in largest.items()},
+               same_argmax=same_argmax, act_ms=act_ms,
+               policy_learned=pol.learned,
+               policy_takes_follower_action=all(follows))
+    if any(errs[k] > 1e-4 * max(largest[k], 1.0) for k in errs) \
+            or not same_argmax:
+        raise AssertionError(f"DD-PPO card off the CPU twin: {row}")
+    if pol.learned or not all(follows):
+        raise AssertionError(f"DdppoPolicy without a checkpoint: {row}")
+    return row
+
+
+def check_render_sh(mapper):
+    """render_sh at degree 3 over the main episode's live Gaussians at the
+    latest keyframe (256x256): SH coefficients with the map's colours as
+    the DC term and seeded N(0, 0.05) higher orders; the image and the
+    gradient of the L1 loss to the keyframe's colours with respect to
+    the coefficients, on the card against the CPU twin (at most 1e-3 of
+    the pixels off by more than 3e-4; at most 1e-3 of the gradient entries
+    off by more than rtol 1e-3 plus 1e-4 of the largest); K1 and K2
+    launches of one forward and backward; ms of the forward and of the
+    forward with the backward."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.ops import sh as tsh
+    from fisher_nerf_customized_tpu_torch.ops.rasterize import render_sh
+    slam = mapper.slam
+    n, st = slam.n_active, slam.state
+    gen = torch.Generator().manual_seed(0)
+    sh = torch.randn(n, 16, 3, generator=gen) * 0.05
+    sh[:, 0] = (st.rgb_colors[:n].detach().cpu() - 0.5) / tsh.SH_C0
+    kf = len(slam.keyframes) - 1
+    w2c = torch.as_tensor(np.asarray(slam.keyframes.w2cs[kf], np.float32))
+    gt = slam.keyframes.color_dev(kf, "cpu")
+    leaves = [x.detach().cpu() for x in (
+        st.means3D[:n], torch.exp(st.log_scales[:n]), st.unnorm_rotations[:n],
+        torch.sigmoid(st.logit_opacities[:n, 0]))]
+    inputs = {dev: [x.to(dev) for x in (*leaves, w2c, sh, gt)]
+              for dev in ("cuda", "cpu")}
+
+    def run(dev, backward=True):
+        means, scales, quats, opac, pose, coeffs, target = inputs[dev]
+        coeffs = coeffs.detach().requires_grad_(backward)
+        out = render_sh(slam.camera, means, pose, scales, quats, opac,
+                        coeffs, deg=3, settings=slam.settings)
+        if backward:
+            torch.abs(out["color"] - target).mean().backward()
+        return out["color"].detach(), coeffs.grad
+
+    zero_launches()
+    img, grad = run("cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    img_cpu, grad_cpu = run("cpu")
+    img_off, img_err = frac_off(img.cpu(), img_cpu, 0.0, 3e-4)
+    g_off, g_err = frac_off(grad.cpu(), grad_cpu, 1e-3,
+                            1e-4 * float(grad_cpu.abs().max()))
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: run("cuda", backward=False), 10)
+    fwd_bwd_ms = cuda_ms(lambda: run("cuda"), 10)
+    row = dict(n_gaussians=n, H=slam.camera.height, W=slam.camera.width,
+               max_per_tile=slam.settings.max_per_tile,
+               image_off_frac=img_off, image_max_err=img_err,
+               grad_off_frac=g_off, grad_max_err=g_err,
+               grad_largest=float(grad_cpu.abs().max()),
+               image_mean=float(img.mean()), forward_ms=fwd_ms,
+               forward_backward_ms=fwd_bwd_ms,
+               launches_blend=launches["blend"],
+               launches_blend_bwd=launches["blend_bwd"])
+    if not (bool(torch.isfinite(img).all()) and bool(
+            torch.isfinite(grad).all())):
+        raise AssertionError("render_sh: non-finite image or gradient")
+    if img_off > 1e-3 or g_off > 1e-3 or float(grad_cpu.abs().max()) <= 0:
+        raise AssertionError(f"render_sh off the CPU twin: {row}")
+    if launches["blend"] != 1 or launches["blend_bwd"] != 1:
+        raise AssertionError(f"render_sh launches: {launches}")
+    return row
+
+
+def check_occ_map(args, cfg, mapper):
+    """OccupancyMap at the planner's grid, cell and centre over the
+    episode's first OCC_MAP_FRAMES frames (the start and the init scan's
+    left turns, from a fresh sim), on the card and on the CPU: the labels
+    equal cell for cell, the vote maps' largest difference reported; ms
+    per update on the card."""
+    import torch
+    from fisher_nerf_customized_tpu_torch import cli
+    from fisher_nerf_customized_tpu_torch.planning.occ_map import OccupancyMap
+    planner = mapper.planner
+    sim, _scene = cli.make_sim(args, cfg, SCENE)
+    frames = [sim.get_observations()] + [sim.step(2) for _ in
+                                         range(OCC_MAP_FRAMES - 1)]
+    kw = dict(grid_dim=tuple(int(g) for g in planner.grid_dim),
+              cell_size=planner.cell_size, map_center=planner.map_center,
+              height_lower=planner.height_lower,
+              height_upper=planner.height_upper,
+              pcd_far=planner.pcd_far_distance)
+    maps = {dev: OccupancyMap(mapper.slam.camera, device=dev, **kw)
+            for dev in ("cuda", "cpu")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for obs in frames:
+        maps["cuda"].update(obs["depth"], obs["c2w"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    for obs in frames:
+        maps["cpu"].update(obs["depth"].cpu(), obs["c2w"])
+    lab, lab_cpu = maps["cuda"].labels(), maps["cpu"].labels()
+    row = dict(frames=len(frames), grid=kw["grid_dim"],
+               cells_differ=int((lab != lab_cpu).sum()),
+               votes_max_diff=float((maps["cuda"].occ_map.cpu()
+                                     - maps["cpu"].occ_map).abs().max()),
+               explored_ratio=maps["cuda"].explored_ratio(),
+               ms_per_update=ms)
+    if row["cells_differ"] or row["explored_ratio"] <= 0:
+        raise AssertionError(f"OccupancyMap on the card off the CPU: {row}")
+    return row
+
+
 def device_ms_and_launches(fn):
     """Device time (ms, the profiler's kernel rows) and kernel launches of
     one call of fn, after a warm-up call."""
@@ -2596,6 +3051,18 @@ def main(argv=None):
         if not 0.0 < result["coverage_2d_pct"] <= 100.0:
             raise AssertionError(f"coverage {result['coverage_2d_pct']}")
 
+        # ---- the same episode with pipelined planning (no evaluation),
+        # second, so that its host-bound phases read as the episode's do
+        p_result, _p_mapper, p_row = run_pipelined_episode(
+            os.path.join(HERE, "experiments", "chip_smoke"), timing,
+            ep_wall_s)
+        report["pipelined_episode"] = dict(p_row, timing=p_result["timing"])
+        phase("pipelined_episode", **fmt(p_row))
+        for name in PIPE_PHASES:
+            if name in p_result["timing"]:
+                print(f"  timer {name}: {p_result['timing'][name]}")
+        del _p_mapper
+
         # ---- the episode's evaluation and recon curve, its eval chunk
         # against K1's twin, the resume, the ties at the K cut
         ev_row, report["eval"] = check_eval(result, mapper, ev)
@@ -2702,6 +3169,17 @@ def main(argv=None):
         phase("dino_gate", **fmt(report["dino_gate"]))
         report["nav_images"] = run_nav_images(log_dir)
         phase("nav_images", **fmt(report["nav_images"]))
+
+        # ---- the legacy planning API, render_sh and the OccupancyMap on
+        # the main episode's map, and the DD-PPO network
+        report["legacy_planning"] = check_legacy_planning(mapper)
+        phase("legacy_planning", **fmt(report["legacy_planning"]))
+        report["ddppo"] = check_ddppo()
+        phase("ddppo", **fmt(report["ddppo"]))
+        report["render_sh"] = check_render_sh(mapper)
+        phase("render_sh", **fmt(report["render_sh"]))
+        report["occ_map"] = check_occ_map(ep_args, ep_cfg, mapper)
+        phase("occ_map", **fmt(report["occ_map"]))
 
     # ---- slice (the map-query path)
     if not opts.kernels_only:

@@ -203,7 +203,8 @@ def make_sim(args, cfg, scene_id: str):
                         start_xz=start, seed=seed)
     sim = FakeSim(scene, cam, forward_step=float(cfg.forward_step_size),
                   turn_angle=float(cfg.turn_angle), seed=args.seed,
-                  dynamic_object=obj, device=args.device)
+                  dynamic_object=obj, device=args.device,
+                  object_dynamic=bool(args.dynamic_scene))
     return sim, scene
 
 

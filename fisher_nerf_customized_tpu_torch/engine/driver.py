@@ -89,8 +89,19 @@ With policy.save_nav_images, each planning event writes
 planning_vis/plan_<frame>.png and every 20th step
 nav_images/topdown_<step>.png (engine/visualization.py).
 
-Not ported yet (ROADMAP.md): pipelined planning; a config that turns it
-on raises NotImplementedError.
+Pipelined planning (tpu.pipeline_planning), as in the JAX package: when
+0 < len(queue) <= tpu.plan_watermark at the top of a step (not under
+UPEN, the frontier policy or a scripted trajectory), `prepare_planning`
+generates the candidates from this step's map and occupancy and launches
+their Fisher scoring, before this step's mapping event; the planning
+event that drains the queue takes that preparation when it plans its
+first round (expansion 1) at most plan_watermark + 2 steps after it,
+and plans anew otherwise.  Each step also prefetches the next frame
+(FakeSim.prefetch) for the queue's head or the scripted action, before
+its mapping event.  `plan_preps` counts the preparations made, consumed
+and dropped as stale.  A preparation is not checkpointed (nor in the
+JAX package), so a run resumed between a preparation and its planning
+event plans that event anew.
 """
 from __future__ import annotations
 
@@ -113,18 +124,6 @@ from .actions import action_planning, compile_actions, rollout_path_poses
 from .eval import (IncrementalReconMetric, MetricsRecorder,
                    accuracy_comp_ratio_from_pcl, eval_navigation)
 from .path_eval import acc_step_indices, path_eig_scores
-
-_NOT_PORTED = ("{} is not ported to the PyTorch package yet (ROADMAP.md, "
-               "queue 1)")
-
-
-def _check_ported(cfg):
-    """Raise NotImplementedError for a setting whose code path is not
-    ported."""
-    if bool(cfg.tpu.get("pipeline_planning", False)):
-        raise NotImplementedError(_NOT_PORTED.format(
-            "Pipelined planning (tpu.pipeline_planning)"))
-
 
 class TornCheckpointError(RuntimeError):
     """A checkpoint file belongs to another step than the commit
@@ -151,7 +150,6 @@ class ActiveMapper:
         self.scene_id = scene_id or os.path.basename(eval_dir or "") \
             or "fake_scene"
         self.policy_name = policy_name or str(cfg.policy.name)
-        _check_ported(cfg)
         self.eval_dir = eval_dir or os.path.join(cfg.workdir, cfg.run_name)
         os.makedirs(self.eval_dir, exist_ok=True)
 
@@ -197,6 +195,10 @@ class ActiveMapper:
         self.stuck_count = 0      # consecutive blocked forwards
         self.stuck_total = 0      # lifetime blocked forwards (recorded)
         self.plan_watermark = int(cfg.tpu.get("plan_watermark", 2))
+        self.pipeline_planning = bool(cfg.tpu.get("pipeline_planning",
+                                                  False))
+        self._plan_prep = None         # (step, finish) of a pending stage 1
+        self.plan_preps = dict(made=0, consumed=0, dropped=0)
         self._inc_recon = None
         self._inc_recon_saved = None   # the running metric of a checkpoint
         self._pcl_skip = 0             # its points already in the cloud
@@ -384,25 +386,57 @@ class ActiveMapper:
         return m
 
     # -- planning -----------------------------------------------------------
+    def prepare_planning(self, current_agent_pose: np.ndarray, t: int):
+        """Pipelined planning's stage 1: the candidates of this step's map
+        and occupancy, their Fisher scoring launched (pose_eval_async);
+        plan_best_path takes the finish closure when the queue drains.
+        Nothing under the frontier policy or while a preparation is
+        pending."""
+        if self.policy_name == "frontier" or self._plan_prep is not None:
+            return
+        slam, planner = self.slam, self.planner
+        if bool(self.cfg.explore.prune_invisible):
+            slam.prune_invisible()
+        try:
+            finish = planner.global_planning(
+                slam.pose_eval_async, slam.gaussian_points, None,
+                expansion=1, agent_pose=current_agent_pose[:3, 3],
+                defer_scores=True)
+        except (LocalizationError, NoFrontierError):
+            return
+        if finish is not None:
+            self._plan_prep = (t, finish)
+            self.plan_preps["made"] += 1
+
     def plan_best_path(self, current_agent_pose: np.ndarray, expansion: int,
                        t: int):
-        """Global candidates -> sweep paths and actions -> batched path EIG
-        -> the best action sequence.  Returns (actions, path) or
-        (None, None)."""
+        """Global candidates (or a pending stage 1's) -> sweep paths and
+        actions -> batched path EIG -> the best action sequence.  Returns
+        (actions, path) or (None, None)."""
         slam, planner = self.slam, self.planner
+        prep, self._plan_prep = self._plan_prep, None
         snap = getattr(self, "_points_snapshot", None)
         points = snap[1] if snap is not None and snap[0] == t else None
         with self.timer.phase("plan.global"):
-            if bool(self.cfg.explore.prune_invisible):
-                slam.prune_invisible()
-            pose_fn = None if self.policy_name == "frontier" \
-                else slam.pose_eval_async
+            if (prep is not None and expansion == 1
+                    and t - prep[0] <= self.plan_watermark + 2):
+                finish = prep[1]
+                self.plan_preps["consumed"] += 1
+            else:
+                if prep is not None:
+                    self.plan_preps["dropped"] += 1
+                if bool(self.cfg.explore.prune_invisible):
+                    slam.prune_invisible()
+                pose_fn = None if self.policy_name == "frontier" \
+                    else slam.pose_eval_async
+                finish = planner.global_planning(
+                    pose_fn,
+                    points if points is not None else slam.gaussian_points,
+                    None, expansion=expansion,
+                    agent_pose=current_agent_pose[:3, 3], defer_scores=True,
+                    visualize=bool(self.cfg.policy.save_nav_images))
             gaussian_points = (points if points is not None
                                else slam.gaussian_points)
-            finish = planner.global_planning(
-                pose_fn, gaussian_points, None, expansion=expansion,
-                agent_pose=current_agent_pose[:3, 3], defer_scores=True,
-                visualize=bool(self.cfg.policy.save_nav_images))
             if finish is None or isinstance(finish, tuple):
                 return None, None
         # the candidate Fisher batch is in flight: launch the sweep field
@@ -596,6 +630,23 @@ class ActiveMapper:
                 obj.moving_randomly()
                 obs = self.sim.get_observations()
             obj_mask = self._object_mask(obs)
+            # the next action is known while the queue holds one (or the
+            # trajectory scripts it): launch the next frame's raycast
+            # before this step's mapping event
+            with self.timer.phase("prefetch"):
+                if hasattr(self.sim, "prefetch"):
+                    if self.traj_actions is None and self.queue:
+                        self.sim.prefetch(self.queue[0])
+                    elif (self.traj_actions is not None
+                            and t < len(self.traj_actions)):
+                        self.sim.prefetch(int(self.traj_actions[t]))
+            # pipelined planning's stage 1, before this step's mapping
+            # event: the candidates' scoring is launched ahead of it
+            if (self.pipeline_planning and self.upen is None
+                    and self.traj_actions is None
+                    and 0 < len(self.queue) <= self.plan_watermark):
+                with self.timer.phase("planning"):
+                    self.prepare_planning(c2w, t)
             # planning runs this step iff the queue is empty: take the
             # Gaussian means before this step's mapping event (not under
             # prune_invisible, which changes them before planning)

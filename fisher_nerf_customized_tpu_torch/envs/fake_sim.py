@@ -5,8 +5,10 @@
 device and steps the discrete action space (1 fwd / 2 left / 3 right)
 with collision checks, so the SLAM object can be driven with no scene
 data.  Observations stay on the device as torch tensors.  A `SimObject`
-(a box that can random-walk, the object branch's dynamic object) adds
-its box to the raycast and a `semantic` channel to the observations.
+(a box that can random-walk or oscillate, the object branch's dynamic
+object) adds its box to the raycast and a `semantic` channel to the
+observations.  `FakeSim.prefetch(action)` launches the next frame's
+raycast ahead of `step(action)`, which then takes it.
 
 Conventions: world y is up; cameras are +z forward / +y down (CV frame);
 depth images are z-depth along the camera axis.
@@ -235,8 +237,9 @@ class BoxScene:
 class SimObject:
     """A kinematic dynamic object: an extra box with a random-walk motion
     drawn from its own numpy generator (the reference's SimObject:
-    semantic id, translation, moving_randomly: a random yaw jitter and a
-    new random yaw off non-navigable positions)."""
+    semantic id, translation, moving_forward_and_back: an oscillation
+    along the heading; moving_randomly: a random yaw jitter and a new
+    random yaw off non-navigable positions)."""
 
     def __init__(self, scene: BoxScene, semantic_id: int = 100,
                  size=(0.3, 0.6, 0.3), start_xz=(0.8, -0.8),
@@ -248,6 +251,7 @@ class SimObject:
         self.yaw = 0.0
         self.speed = float(speed)
         self.rng = np.random.default_rng(seed)
+        self._dir = 1.0
 
     @property
     def translation(self) -> np.ndarray:
@@ -305,6 +309,14 @@ class SimObject:
             self.pos = nxt
             return True
         return False
+
+    def moving_forward_and_back(self):
+        """A step of `speed` along the heading, the direction reversed
+        where that step is not navigable."""
+        d = np.array([np.sin(self.yaw), 0.0, np.cos(self.yaw)]) \
+            * self.speed * self._dir
+        if not self._try_move(d):
+            self._dir *= -1.0
 
     def moving_randomly(self):
         """A random yaw jitter, and a new random yaw where the step is not
@@ -392,12 +404,20 @@ class FakeSim:
     `dynamic_object`, its box is part of every raycast, at its position
     at the time of the call (no frame is cached, so a moved object shows
     where it is), and the observations carry `semantic`, an (H, W) int32
-    numpy array: the object's semantic id where it is hit, else 0."""
+    numpy array: the object's semantic id where it is hit, else 0.
+
+    `prefetch(action)` launches the raycast of the frame that
+    `step(action)` would render, without changing the sim; the next
+    `step` takes that frame when its action is the prefetched one (and
+    counts it in `prefetch_hits`), and renders anew otherwise.  With
+    `object_dynamic` (the episode moves the object between steps),
+    prefetch does nothing: the object may still move before the step."""
 
     def __init__(self, scene: BoxScene, camera: Camera,
                  forward_step: float = 0.065, turn_angle: float = 10.0,
                  cam_height: float = 1.25, seed: int = 0,
-                 dynamic_object: SimObject | None = None, device="cuda"):
+                 dynamic_object: SimObject | None = None, device="cuda",
+                 object_dynamic: bool = False):
         self.scene = scene
         self.camera = camera
         self.forward_step = float(forward_step)
@@ -405,6 +425,9 @@ class FakeSim:
         self.cam_height = float(cam_height)
         self.device = torch.device(device)
         self.dynamic_object = dynamic_object
+        self.object_dynamic = bool(object_dynamic)
+        self._prefetched = None
+        self.prefetch_hits = 0
         b = scene.boxes()
         self._boxes = (torch.as_tensor(b.lo, device=self.device),
                        torch.as_tensor(b.hi, device=self.device),
@@ -445,18 +468,31 @@ class FakeSim:
         self.c2w[:3, :3] = R
         self.c2w[:3, 3] = [start_xz[0], self.cam_height, start_xz[1]]
         self.collided_last = False
+        self._prefetched = None
         return self.get_observations()
 
-    def get_observations(self):
-        rgb, depth, hit, obj_idx = self._raycast(self.c2w)
-        obs = dict(rgb=rgb, depth=depth, c2w=self.c2w.copy())
+    def _frame(self, c2w):
+        """The observation tensors at c2w: rgb, depth and, with an object,
+        the semantic mask (still on the device)."""
+        rgb, depth, hit, obj_idx = self._raycast(c2w)
+        sem = None
         if self.dynamic_object is not None:
             sem = torch.where(hit == obj_idx, self.dynamic_object.semantic_id,
                               0).to(torch.int32)
+        return rgb, depth, sem
+
+    def _obs(self, frame):
+        rgb, depth, sem = frame
+        obs = dict(rgb=rgb, depth=depth, c2w=self.c2w.copy())
+        if sem is not None:
             obs["semantic"] = sem.cpu().numpy()
         return obs
 
-    def step(self, action_id: int):
+    def get_observations(self):
+        return self._obs(self._frame(self.c2w))
+
+    def _next_pose(self, action_id: int):
+        """The pose after action_id and whether a forward was blocked."""
         next_c2w = compute_next_campos(self.c2w, int(action_id),
                                        self.forward_step, self.turn_angle)
         collided = False
@@ -465,12 +501,29 @@ class FakeSim:
             if not self.scene.is_navigable((nxt[0], 0.0, nxt[2])):
                 collided = True
                 next_c2w = self.c2w      # blocked: stay (habitat-style stop)
-        self.c2w = np.asarray(next_c2w, np.float32)
-        self.collided_last = collided
+        return np.asarray(next_c2w, np.float32), collided
+
+    def prefetch(self, action_id: int):
+        """Launch the raycast of the frame after action_id; nothing of the
+        sim's state changes until step takes it."""
+        if self.dynamic_object is not None and self.object_dynamic:
+            return
+        next_c2w, collided = self._next_pose(int(action_id))
+        self._prefetched = (int(action_id), next_c2w, collided,
+                            self._frame(next_c2w))
+
+    def step(self, action_id: int):
+        pf, self._prefetched = self._prefetched, None
+        if pf is not None and pf[0] == int(action_id):
+            _a, self.c2w, self.collided_last, frame = pf
+            self.prefetch_hits += 1
+            return self._obs(frame)
+        self.c2w, self.collided_last = self._next_pose(int(action_id))
         return self.get_observations()
 
     def set_pose(self, c2w):
         self.c2w = np.asarray(c2w, np.float32)
+        self._prefetched = None
 
     def render_at(self, c2w):
         """Ground-truth (rgb, depth) tensors at a c2w pose."""

@@ -11,7 +11,10 @@ opacity prune, one compaction at the end).  The map is rendered at poses
 (`_fisher_batch`, `_pose_scores`).  `GaussianSLAM` keeps the reference's
 host API: init / track_rgbd / render_at_pose(s) / compute_Hessian /
 compute_H_train / pose_eval(_async) / gaussian_points / prune_invisible /
-delete_gaussians_by_index / save / load.
+delete_gaussians_by_index / save / load, and the reference's legacy
+in-SLAM planning (get_top_down_map, uncertainty_scores, global_planning
+with DBSCAN targeting, DFS_acq_score_planning), whose pose chunks are
+scored by `_pose_point_scores` (K3, 11-wide).
 
 Without ground-truth poses (`tracking.use_gt_poses false`) each frame's
 pose is tracked (`_track_pose`): from the constant-velocity guess,
@@ -432,6 +435,27 @@ def _pose_scores(state: GaussianState, w2cs, h_train_inv, camera: Camera,
     return torch.sum(out["H"] * h_train_inv[None], dim=(1, 2))
 
 
+def _sum_rows4(x):
+    """Sum over a last axis of 4, left to right (the order of the JAX
+    package's compiled row sum)."""
+    return ((x[..., 0] + x[..., 1]) + x[..., 2]) + x[..., 3]
+
+
+def _pose_point_scores(state: GaussianState, w2cs, n_poses: int,
+                       h_train_inv, camera: Camera, settings: RenderSettings,
+                       full_chain: bool = False, grad_value: float = 1e-3):
+    """Each pose's view score sum(H ⊙ H_train_inv) and, per Gaussian, the
+    largest of its row sums over the first n_poses poses of w2cs (the
+    rows past n_poses are padding, masked to -inf), from one batched
+    Fisher call."""
+    out = _fisher_batch(state, w2cs, camera, settings, full_chain,
+                        grad_value)
+    pt = _sum_rows4(out["H"] * h_train_inv[None])                # (P, cap)
+    ok = (torch.arange(w2cs.shape[0], device=w2cs.device) < n_poses)[:, None]
+    return pt.sum(dim=1), torch.where(
+        ok, pt, torch.full_like(pt, -float("inf"))).amax(dim=0)
+
+
 @torch.no_grad()
 def _seen_from_poses(state: GaussianState, w2cs, n_poses: int,
                      camera: Camera):
@@ -545,6 +569,7 @@ class GaussianSLAM:
         self.rng = np.random.default_rng(0)
         self.last_losses = None   # (n_steps,) losses of the latest event
         self._param_version = 0   # bumped on any Gaussian-param mutation
+        self.selection = 0        # the legacy global_planning's round count
 
     # -- helpers ------------------------------------------------------------
     @property
@@ -575,6 +600,9 @@ class GaussianSLAM:
         pts = self.state.means3D[:self.n_active].detach().cpu().numpy()
         self._gpts_cache = (self._state_epoch, pts)
         return pts
+
+    def get_gaussian_xyz(self) -> torch.Tensor:
+        return torch.as_tensor(self.gaussian_points, device=self.device)
 
     def _maybe_bump_tile_capacity(self, overflow: int, n_renders: int):
         """Adaptive per-tile capacity: double `max_per_tile` (up to
@@ -987,12 +1015,223 @@ class GaussianSLAM:
             self._h_train_cache = (self._h_train_key(), cached[1][order])
         return removed
 
-    def gs_pts_cnt(self):
+    def gs_pts_cnt(self, random_gaussian_params=None):
         return max(self.n_active, 1)
 
     def get_latest_frame(self):
         """(4, 4) c2w of the latest tracked frame."""
         return np.linalg.inv(self.poses_w2c[self.frame_idx])
+
+    # -- the legacy in-SLAM planning API (the reference's own planning,
+    # superseded by AstarPlanner; nothing in the driver calls it) ----------
+    def get_top_down_map(self, cell_size: float | None = None,
+                         grid_dim: int = 256) -> np.ndarray:
+        """A (3, grid_dim, grid_dim) vote map of the Gaussian means around
+        their xz mean: channel 0 unknown (1 everywhere), 1 a vote per mean
+        in the 0.1-1.3 m band, 2 0.01 per other mean."""
+        cell = cell_size or float(self.cfg.explore.cell_size)
+        pts = self.gaussian_points
+        occ = np.zeros((3, grid_dim, grid_dim), np.float32)
+        occ[0] = 1.0
+        if len(pts) == 0:
+            return occ
+        center = pts[:, [0, 2]].mean(axis=0)
+        gx = np.clip(np.floor((pts[:, 0] - center[0]) / cell)
+                     + grid_dim // 2, 0, grid_dim - 1).astype(np.int64)
+        gz = np.clip(np.floor((pts[:, 2] - center[1]) / cell)
+                     + grid_dim // 2, 0, grid_dim - 1).astype(np.int64)
+        occ_band = (pts[:, 1] >= 0.1) & (pts[:, 1] <= 1.3)
+        np.add.at(occ[1], (gz[occ_band], gx[occ_band]), 1.0)
+        np.add.at(occ[2], (gz[~occ_band], gx[~occ_band]), 0.01)
+        return occ
+
+    @property
+    def cam_height(self) -> float:
+        """The first tracked frame's camera height (world y of its c2w)."""
+        if self.poses_w2c:
+            return float(np.linalg.inv(self.poses_w2c[0])[1, 3])
+        return 1.25
+
+    def uncertainty_scores(self) -> np.ndarray:
+        """Per-Gaussian uncertainty, the sum of 1 / (H_train + 0.1) over
+        its Fisher row, (capacity,) numpy."""
+        return _sum_rows4(1.0 / (self.compute_H_train() + 0.1)).cpu().numpy()
+
+    def global_planning(self, is_navigable, agent_pose=None, frontier=None,
+                        find_path=None):
+        """The reference's in-SLAM planning event: (scores (P,), c2ws
+        (P, 4, 4)) tensors of the navigable candidates, or (None, None).
+
+        Ring centres: `frontier` (M, 2) world xz points while fewer than
+        two rounds have run (`selection` < 2), else the Gaussians of
+        highest uncertainty (above the 0.8 quantile of
+        uncertainty_scores in the camera's height band) clustered by
+        DBSCAN (eps 0.1, 5 samples), the cluster holding the most
+        uncertain point winning; centres and candidates are drawn from
+        the shared `self.rng`.  The ring radius grows with the rounds
+        (sample_range x (selection + 1), at most 5 m).  Candidates must
+        pass `is_navigable(position)` and, if given, `find_path(position)`
+        without raising.  Each pose chunk is scored by one Fisher call
+        that also gives every Gaussian's largest score; with
+        explore.prune_invisible the winning cluster's Gaussians whose
+        largest score stays under twice their uncertainty are deleted.
+        With an eval_dir the DBSCAN labels go to
+        global_planning_iter<frame>.npz."""
+        from ..planning.candidates import generate_candidates
+        ex = self.cfg.explore
+        k = int(ex.sample_view_num)
+        rng = self.rng
+        h_train_inv = 1.0 / (self.compute_H_train() + 0.1)
+        score_points = _sum_rows4(h_train_inv).cpu().numpy()
+        pts = self.gaussian_points
+        cam_h = self.cam_height
+        selected_points_index = None
+
+        use_frontier = (frontier is not None and len(frontier) > 0
+                        and self.selection < 2)
+        if use_frontier:
+            f = np.asarray(frontier, np.float32).reshape(-1, 2)
+            centers_xz = f[rng.integers(0, len(f), k)]
+        else:
+            band = ((pts[:, 1] >= cam_h - float(ex.height_range))
+                    & (pts[:, 1] <= cam_h + float(ex.height_range)))
+            if not band.any():
+                self.selection += 1
+                return None, None
+            sel_xyz = pts[band]
+            sel_scores = score_points[:self.n_active][band]
+            idx_range = np.where(band)[0]
+            thresh = np.quantile(sel_scores, 0.8)
+            over = sel_scores > thresh
+            centers_xz = None
+            if over.sum() > 0:
+                from ..utils.clustering import dbscan
+                labels = dbscan(sel_xyz[over], eps=0.1, min_samples=5)
+                over_scores = sel_scores[over]
+                best_label, best = -1, -np.inf
+                for lab in np.unique(labels):
+                    if lab < 0:
+                        continue
+                    s = over_scores[labels == lab].max()
+                    if s > best:
+                        best_label, best = int(lab), s
+                if self.eval_dir:
+                    seg = np.full((len(score_points),), -1, np.int64)
+                    seg[idx_range[over]] = labels
+                    os.makedirs(self.eval_dir, exist_ok=True)
+                    atomic_savez(os.path.join(
+                        self.eval_dir,
+                        f"global_planning_iter{self.frame_idx}.npz"),
+                        segmentated_labels=seg[idx_range],
+                        max_label=best_label, points_index_range=idx_range)
+                if best_label >= 0:
+                    in_cluster = labels == best_label
+                    selected_points_index = idx_range[over][in_cluster]
+                    cluster_pts = sel_xyz[over][in_cluster]
+                    centers_xz = cluster_pts[
+                        rng.integers(0, len(cluster_pts), k)][:, [0, 2]]
+            if centers_xz is None:
+                centers_xz = sel_xyz[np.argmax(sel_scores)][None, [0, 2]]
+
+        radius = min(float(ex.sample_range) * (self.selection + 1), 5.0)
+        c2ws = generate_candidates(centers_xz, k, radius,
+                                   float(ex.min_range), cam_h, rng)
+
+        agent_y = (float(np.asarray(agent_pose)[1, 3])
+                   if agent_pose is not None else cam_h)
+        nav = []
+        for i, c2w in enumerate(c2ws):
+            p = c2w[:3, 3].copy()
+            p[1] = agent_y
+            if not bool(is_navigable(p)):
+                continue
+            if find_path is not None:
+                try:
+                    find_path(p)
+                except Exception:
+                    continue
+            nav.append(i)
+        self.selection += 1
+        if not nav:
+            return None, None
+        nav_c2ws = c2ws[np.asarray(nav)]
+        w2cs = np.linalg.inv(nav_c2ws)
+
+        ck = self.pose_chunk
+        scores, max_points = [], None
+        for i in range(0, len(w2cs), ck):
+            chunk = w2cs[i:i + ck]
+            vs, pm = _pose_point_scores(
+                self.state, self._w2c(_pad_poses(chunk, ck)), len(chunk),
+                h_train_inv, self.fisher_camera, self.fisher_settings,
+                self.fisher_full_chain, self.fisher_grad_value)
+            scores.append(vs[:len(chunk)])
+            max_points = pm if max_points is None else torch.maximum(
+                max_points, pm)
+        scores = torch.cat(scores)
+
+        if bool(ex.prune_invisible) and selected_points_index is not None:
+            sel_max = max_points.cpu().numpy()[selected_points_index]
+            low = sel_max < score_points[selected_points_index] * 2.0
+            if low.any():
+                self.delete_gaussians_by_index(selected_points_index[low])
+        return scores, torch.as_tensor(nav_c2ws, device=self.device)
+
+    def DFS_acq_score_planning(self, train_poses, is_navigable,
+                               max_depth: int = 6,
+                               forward_step: float = 0.065,
+                               turn_angle: float = 10.0) -> list[int]:
+        """The reference's 3-action lookahead: a depth-first search over
+        max_depth actions from the last of `train_poses` (c2w), each pose
+        scored by sum(H_pose / (H_acc + 0.1)) with H_acc = H_train plus
+        the Hessians of the poses before it on the branch; a left right
+        after a right (or the reverse) scores -1, and so does a pose that
+        fails `is_navigable(position)`.  Returns the best branch's actions
+        in the order they run."""
+        from ..utils.geometry import compute_next_campos
+        h_train = self.compute_H_train()
+
+        def dfs(train_h, pose, action_id, depth):
+            if depth > 0:
+                if not is_navigable(pose[:3, 3]):
+                    return -1.0, []
+                cur = self.compute_Hessian(np.linalg.inv(pose),
+                                           return_points=True)
+                acq = float((cur / (train_h + 0.1)).sum())
+                train_h = train_h + cur
+            else:
+                acq = 0.0
+            if depth == max_depth:
+                return acq, []
+            scores, actions = [], []
+            for a in (1, 2, 3):
+                if (a == 2 and action_id == 3) or (a == 3 and action_id == 2):
+                    scores.append(-1.0)
+                    actions.append([])
+                    continue
+                nxt = compute_next_campos(pose, a, forward_step, turn_angle)
+                s, acts = dfs(train_h, nxt, a, depth + 1)
+                scores.append(s)
+                actions.append(acts)
+            best = int(np.argmax(scores))
+            return acq + scores[best], actions[best] + [best + 1]
+
+        start = np.asarray(train_poses[-1], np.float64)
+        _score, action_list = dfs(h_train, start, 1, 0)
+        return action_list[::-1]
+
+    # MonoGS-compatible no-ops
+    def pause(self):
+        pass
+
+    def resume(self):
+        pass
+
+    def stop(self):
+        pass
+
+    def color_refinement(self):
+        pass
 
     # checkpointing ---------------------------------------------------------
     def save(self, time_idx: int):

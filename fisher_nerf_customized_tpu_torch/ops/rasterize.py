@@ -151,3 +151,20 @@ def render(camera: Camera, means_cam, scales, quats, opacities, colors,
                     prep.depth.detach(), prep.valid, camera.width,
                     camera.height, st.tile_size, st.max_per_tile)
     return _blend(camera, st, prep, bins, opacities, colors, bg)
+
+
+def render_sh(camera: Camera, means_world, w2c, scales, quats, opacities,
+              sh, deg: int = 3, bg=None, active=None,
+              settings: RenderSettings = RenderSettings()):
+    """Render world-frame Gaussians with view-dependent SH colours
+    (ops/sh.py, degree 0 to 3; sh (N, M, 3) with M >= (deg + 1)^2) at the
+    (4, 4) world-to-camera w2c; the rest as `render`.  Differentiable in
+    sh and, through the view direction and the transform, in the
+    means."""
+    from .sh import sh_to_rgb
+    rot = w2c[:3, :3]
+    campos = -(rot.T @ w2c[:3, 3])                # the camera centre
+    colors = sh_to_rgb(sh, means_world, campos, deg=deg)
+    means_cam = means_world @ rot.T + w2c[:3, 3]
+    return render(camera, means_cam, scales, quats, opacities, colors,
+                  bg=bg, active=active, settings=settings)

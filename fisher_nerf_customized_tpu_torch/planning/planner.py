@@ -5,8 +5,8 @@ AstarPlanner's API): init / init_known_env / update_occ_map /
 cover_fov_2d / build_frontier_cells / build_frontiers / setup_start /
 planning / global_planning / global_planning_frontier /
 global_object_planning / add_obstacle / convert_to_map /
-convert_to_world / pose_eval (a uniform stub) / render_bev / save /
-load.  The
+convert_to_world / occ_coord_to_3d / get_map / pose_eval (a uniform
+stub) / render_bev / save / load.  The
 (3, Gz, Gx) occupancy map stays on the planner's device and takes one
 vote update per frame (planning/occupancy.py); a planning event pulls its
 uint8 label map once and runs the morphology, connected components and
@@ -727,6 +727,22 @@ class AstarPlanner:
         scores, poses = _host(scores), _host(poses)
         order = np.argsort(-scores, kind="stable")[:20]
         return poses[order], scores[order], None
+
+    def occ_coord_to_3d(self, occ_coord) -> np.ndarray:
+        """(M, 2) map cells (row z, column x) -> (M, 3) world points at
+        the camera's height."""
+        pts = np.asarray(occ_coord)[:, [1, 0]]
+        world = (pts - np.array([[self.grid_dim[0] // 2,
+                                  self.grid_dim[1] // 2]])) * self.cell_size \
+            + self.map_center[None, :]
+        out = np.zeros((len(world), 3))
+        out[:, [0, 2]] = world
+        out[:, 1] = self.cam_height
+        return out
+
+    def get_map(self) -> torch.Tensor:
+        """The (3, Gz, Gx) occupancy map, on the planner's device."""
+        return self.occ_map
 
     # -- persistence --------------------------------------------------------
     def save(self, path: str, **extra):

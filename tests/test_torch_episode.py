@@ -246,8 +246,6 @@ def test_entry_point_runs_an_episode(tmp_path, capsys):
 # the setting is accepted where it was refused
 PORTED_FLAGS = (["--dino_gate"], ["--ensemble_dir", "ensemble"],
                 ["--object_scene", "--dino_gate"])
-PORTED_SETTINGS = (("policy.save_nav_images", True),
-                   ("policy.name", "upen_rrt"))
 
 
 def small_sim():
@@ -295,17 +293,15 @@ def test_entry_point_refuses_unported_flags(flag, tmp_path):
                                        ("policy.save_nav_images", True),
                                        ("policy.name", "upen_rrt")])
 def test_driver_refuses_unported_settings(key, value, tmp_path):
-    """Pipelined planning raises NotImplementedError; the navigation
-    images and the UPEN policies are accepted (the driver constructs)."""
+    """Pipelined planning, the navigation images and the UPEN policies
+    are accepted (the driver constructs)."""
     cfg = port_cfg(episode_cfg(tmp_path))
     cfg.merge_from_list([key, value])
-    if (key, value) not in PORTED_SETTINGS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdriver.ActiveMapper(cfg, small_sim(), device="cpu")
-        return
     mapper = tdriver.ActiveMapper(cfg, small_sim(), device="cpu")
     if key == "policy.name":
         assert mapper.upen is not None and mapper.upen.use_rrt
+    elif key == "tpu.pipeline_planning":
+        assert mapper.pipeline_planning and mapper._plan_prep is None
     else:
         assert mapper.upen is None and mapper.cfg.policy.save_nav_images
         assert mapper.planner.eval_dir == mapper.eval_dir

@@ -39,6 +39,11 @@ UPEN_MODULES = [
     "models/predictors.py", "models/semantic_grid.py", "models/upen.py",
     "engine/dino_gate.py", "engine/visualization.py",
     "envs/offline_dataset.py", "tools/train_predictors.py"]
+# the pipelined planning, legacy planning API and SH slice's modules
+PLANNING_API_MODULES = [
+    "utils/clustering.py", "models/droid_wrapper.py", "planning/occ_map.py",
+    "planning/ddppo_net.py", "planning/local_policy.py", "ops/sh.py",
+    "ops/naive.py"]
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -54,7 +59,7 @@ def test_episode_modules_are_checked():
     port = ROOT / "fisher_nerf_customized_tpu_torch"
     assert all(port / m in FILES
                for m in EPISODE_MODULES + EVAL_MODULES + OBJECT_MODULES
-               + KNOWN_ENV_MODULES + UPEN_MODULES)
+               + KNOWN_ENV_MODULES + UPEN_MODULES + PLANNING_API_MODULES)
 
 
 def test_forbidden_pattern_catches_jax_imports():
