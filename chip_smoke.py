@@ -4,7 +4,8 @@ on one NVIDIA GPU.  Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases, one line each:
+Phases, one line each, with its own seconds (phase_s, since the line
+before it) and the seconds since the start (at_s):
   build            compile every CUDA kernel (csrc/*.cu, one nvcc per
                    source, all in parallel) and print ptxas' register use;
   episode          the main path, first in the process: the port's entry
@@ -109,14 +110,15 @@ Phases, one line each:
                    (cli.run_scene, as `python -m
                    fisher_nerf_customized_tpu_torch --object_scene
                    --known_env` runs it) at the same width on
-                   fake_apartment_5, 40 steps, no evaluation: the planner
+                   fake_apartment_5, 20 steps, no evaluation: the planner
                    seeded from the scene's 400 000-point cloud without the
                    object, coverage probes each step, the object found by
                    the novelty mask (the 1-NN kernel, 65 536 pixels
                    against the cloud, every step).  Launch counts zeroed
                    just before and read just after: the 1-NN kernel at
                    least once per step, K1 and K2.  It fails unless the
-                   episode reaches its end and finds the object; prints
+                   episode reaches its end, finds the object and runs an
+                   object planning event; prints
                    the step it was found, and holds the novelty masks of
                    three of its frames on the card against a float64
                    cKDTree reference on the CPU (equal but within 1e-3 m
@@ -171,11 +173,21 @@ Phases, one line each:
                    1 epoch, 2 members (losses finite, its saved ensemble
                    loaded into a fresh UPEN predicting as the trained one,
                    1e-6);
+  perceptual       LPIPS(alex) at AlexNet's widths (64/192/384/256/256)
+                   and a ViT-S/14 at DINOv2's (D 384, 6 heads, 12 blocks, a
+                   37 x 37 position grid), random weights from seeds saved
+                   as checkpoints and loaded by the port's loaders: on 8
+                   image pairs at 256x256 the card against the same modules
+                   on the CPU (LPIPS rel 1e-4, the ViT's tokens within 1e-4
+                   of their largest, ViTPatchExtractor's patches the same);
+                   ms per LPIPS pair and per ViT call;
   dino_gate        the object episode with --dino_gate through the entry
                    point (fake_apartment_5, --object_scene --dynamic_scene),
                    20 steps, no evaluation: K1 and K2 must launch and the
                    bank hold at least the init frame; prints the frames
-                   accepted and vetoed and the ms per gate decision;
+                   accepted and vetoed and the ms per gate decision; then
+                   10 steps with --dino_weights (the ViT checkpoint of
+                   `perceptual`, run on the card) and the same checks;
   nav_images       the FisherRF episode with policy.save_nav_images through
                    the entry point on fake_apartment_0, 30 steps, no
                    evaluation: at least one planning event with K3, a
@@ -183,6 +195,19 @@ Phases, one line each:
                    nav_images/topdown_<t>.png at steps 0 and 20, each
                    PNG's IHDR the size of its map; one render_bev timed
                    and written as bev.png;
+  habitat_episode  --sim habitat through the entry point, with a mock
+                   habitat module whose Env raycasts fake_apartment_0 with
+                   FakeSim on the card and hands back habitat's uint8 rgb
+                   and float32 depth (BoxScene.is_navigable its
+                   pathfinder): 30 steps of ActiveMapper at the full width
+                   (HabitatSim's observations uploaded each step, mapping
+                   and planning events), then the evaluation over 256
+                   poses through HabitatSim.render_at with LPIPS(alex) set
+                   (`perceptual`'s checkpoint).  Launch counts zeroed just
+                   before and read just after: K1, K2 and K3 must run, a
+                   planning event must run, every eval metric be finite;
+                   prints the wall time, the timer's phases, the lpips
+                   mean and the upload ms per frame;
   legacy_planning  the legacy in-SLAM planning API on the episode's final
                    map: get_top_down_map, uncertainty_scores (H_train
                    anew), a frontier round and a DBSCAN round of
@@ -274,10 +299,10 @@ Phases, one line each:
                    (ActiveMapper.plan_best_path), profiled: device time by
                    kernel and the device's idle share; then on its inputs
                    K3 20-wide at the path-EIG shape (B 20) against its
-                   plain twin on the card (timed, with its bound), its
-                   path-EIG scores against the plain twins on the CPU
-                   (same argmax and ranking, for the scores and for their
-                   point-EIG sums), and its sweep field against the CPU's
+                   plain twin on the card (timed, with its bound), the
+                   path-EIG scores of its first 4 paths against the plain
+                   twins on the CPU (same argmax and ranking, for the
+                   scores and for their point-EIG sums), and its sweep field against the CPU's
                    (parent exact, cost to 1e-3); times the sweep field and
                    one occupancy update on the card, and compares that
                    update with the CPU's on the same map and frame, cell
@@ -352,6 +377,10 @@ EPISODE_STEPS = 100
 N_EVAL_POSES = 2000     # the entry point's default
 RESUME_STEPS = 10       # after the resume: one mapping event
 MIN_PLANNING_EVENTS = 2
+# plan_check scores this many of the extra planning event's paths again on
+# the CPU twins (each path's score depends on its own poses alone; all of
+# its 10 paths before, ~85 s of CPU time)
+PLAN_CHECK_CPU_PATHS = 4
 # the object episode: the spawned object (2.2 m from the start, in the
 # start room) is in view from step 0, and the episode runs two object
 # planning events
@@ -360,8 +389,8 @@ OBJECT_STEPS = 40
 MIN_OBJECT_MAPPING = 3
 # the known-environment episode (--object_scene --known_env) on the object
 # scene, and the frontier-only navigation on the episode's scene
-KNOWN_ENV_STEPS = 40
-NAV_STEPS = 100
+KNOWN_ENV_STEPS = 20     # 40 before: the found object's first planning
+NAV_STEPS = 100          # event comes in the first 20 steps
 # the recon update's sub-phases in the episode's timer (engine/driver.py::
 # ActiveMapper._recon_update, engine/eval.py::IncrementalReconMetric.update)
 TRACK_STEPS = 30        # the tracked episode: 3 mapping events
@@ -384,6 +413,14 @@ UPEN_STEPS = 100
 MIN_UPEN_REPLANS = 2
 DINO_STEPS = 20
 NAV_IMAGES_STEPS = 30
+# the perceptual networks at their real widths (LPIPS(alex), a ViT-S/14),
+# the DINO gate's run with the ViT, and the habitat episode (a mock
+# habitat.Env over SCENE, its evaluation with LPIPS(alex))
+PERCEPTUAL_PAIRS = 8
+PERCEPTUAL_SIZE = 256
+DINO_VIT_STEPS = 10
+HABITAT_STEPS = 30
+HABITAT_EVAL_POSES = 256
 # the pipelined episode's timer phases, reported beside the synchronous
 # episode's; the legacy planning API's DFS depths (timed, and held to the
 # CPU twin); the DD-PPO steps; the OccupancyMap's frames
@@ -397,11 +434,16 @@ OCC_MAP_FRAMES = 10
 
 
 T_START = time.perf_counter()
+_LAST_PHASE = [T_START]
 
 
 def phase(tag, /, **fields):
-    """One phase line, with the seconds since the script started."""
-    fields = dict(fields, at_s=f"{time.perf_counter() - T_START:.1f}")
+    """One phase line, with its own seconds (since the line before it)
+    and the seconds since the script started."""
+    now = time.perf_counter()
+    fields = dict(fields, phase_s=f"{now - _LAST_PHASE[0]:.1f}",
+                  at_s=f"{now - T_START:.1f}")
+    _LAST_PHASE[0] = now
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
 
@@ -1027,19 +1069,20 @@ def check_planning_event(mapper, cap, report):
     # compared on their own: by ranking and argmax, as EIG across devices
     # (ROADMAP.md, queue 3 item g)
     n_paths = int(np.isfinite(final.cpu().numpy()).sum())
+    n_cpu = min(n_paths, PLAN_CHECK_CPU_PATHS)
     point_args = (lam, point_w, vol_w, cnt, grad_value)
     card_totals = path_point_eig_totals(state, h_train, w2cs, valid, camera,
                                         settings, *point_args)
-    # (the CPU twins score the real paths only: each path's rows depend on
-    # its own poses alone, and the padding would double the CPU's work)
+    # (the CPU twins score the first n_cpu real paths only: each path's
+    # rows depend on its own poses alone)
     cpu_totals = path_point_eig_totals(
         GaussianState(*(x.cpu() for x in state)), h_train.cpu(),
-        w2cs[:n_paths].cpu(), valid[:n_paths].cpu(), camera, settings,
+        w2cs[:n_cpu].cpu(), valid[:n_cpu].cpu(), camera, settings,
         *point_args)
-    cpu_scores = combine_path_scores(cpu_totals, lengths[:n_paths].cpu(),
-                                     final[:n_paths].cpu(), end_w).numpy()
-    card = cap["scores"].cpu().numpy()[:n_paths]
-    card_totals = card_totals.cpu().numpy()[:n_paths]
+    cpu_scores = combine_path_scores(cpu_totals, lengths[:n_cpu].cpu(),
+                                     final[:n_cpu].cpu(), end_w).numpy()
+    card = cap["scores"].cpu().numpy()[:n_cpu]
+    card_totals = card_totals.cpu().numpy()[:n_cpu]
     cpu_totals = cpu_totals.numpy()
 
     def spearman(a, b):
@@ -1048,7 +1091,8 @@ def check_planning_event(mapper, cap, report):
             return float(np.corrcoef(rank(a), rank(b))[0, 1])
         return float(np.array_equal(rank(a), rank(b)))
 
-    out.update(n_paths=n_paths, path_scores=card.tolist(),
+    out.update(n_paths=n_paths, n_paths_cpu=n_cpu,
+               path_scores=card.tolist(),
                path_scores_cpu=cpu_scores.tolist(),
                path_rel_err_max=float(np.max(np.abs(card - cpu_scores)
                                              / np.abs(cpu_scores))),
@@ -1808,6 +1852,9 @@ def check_known_env(result, mapper, wall_s, launches, rec):
                              f"{result['steps']} ({result['done_reason']})")
     if rec["found"] is None or mapper.obj_slam is None:
         raise AssertionError("the known-env episode found no object")
+    if row["object_planning_events"] < 1:
+        raise AssertionError("the known-env episode ran no object planning "
+                             "event")
     if launches["nn1"] < KNOWN_ENV_STEPS:
         raise AssertionError(f"nn1 launched {launches['nn1']} times in "
                              f"{KNOWN_ENV_STEPS} steps")
@@ -2406,19 +2453,22 @@ def check_upen(mapper, rec, log_dir):
     return row
 
 
-def run_dino_episode(log_dir):
+def run_dino_episode(log_dir, steps=DINO_STEPS, dino_weights=None):
     """The object branch with the DINO gate through the entry point
-    (--object_scene --dynamic_scene --dino_gate) on OBJECT_SCENE for
-    DINO_STEPS steps, on the card, no evaluation.  Fails unless K1 and K2
-    run and the bank holds at least the init frame.  Returns the phase's
-    row."""
+    (--object_scene --dynamic_scene --dino_gate, or --dino_weights with a
+    ViT checkpoint) on OBJECT_SCENE for `steps` steps, on the card, no
+    evaluation.  Fails unless K1 and K2 run and the bank holds at least
+    the init frame.  Returns the phase's row."""
     from fisher_nerf_customized_tpu_torch import cli
+    gate_args = (["--dino_weights", dino_weights] if dino_weights
+                 else ["--dino_gate"])
     args = cli.build_parser().parse_args([
         "--slam_config", os.path.join(HERE, "configs",
                                       "mp3d_gaussian_FR_eccv.yaml"),
-        "--scenes_list", OBJECT_SCENE, "--max_steps", str(DINO_STEPS),
-        "--object_scene", "--dynamic_scene", "--dino_gate",
-        "--eval_poses", "0", "--log_dir", log_dir, "--name", "dino"])
+        "--scenes_list", OBJECT_SCENE, "--max_steps", str(steps),
+        "--object_scene", "--dynamic_scene", *gate_args,
+        "--eval_poses", "0", "--log_dir", log_dir,
+        "--name", "dino_vit" if dino_weights else "dino"])
     cfg = cli.load_config(args)
     result, mapper, wall_s, launches = timed_entry_point(args, cfg,
                                                          OBJECT_SCENE)
@@ -2432,7 +2482,13 @@ def run_dino_episode(log_dir):
                object_n_active=(mapper.obj_slam.n_active
                                 if mapper.obj_slam is not None else 0),
                **{f"launches_{k}": v for k, v in launches.items()})
-    if result["steps"] != DINO_STEPS:
+    if dino_weights:
+        from fisher_nerf_customized_tpu_torch.models.perceptual import (
+            ViTPatchExtractor)
+        if not isinstance(mapper._dino_extractor, ViTPatchExtractor):
+            raise AssertionError("--dino_weights did not gate with the ViT")
+        row["extractor_device"] = str(mapper._dino_extractor.device)
+    if result["steps"] != steps:
         raise AssertionError(f"the DINO episode ended at step "
                              f"{result['steps']} ({result['done_reason']})")
     if min(launches["blend"], launches["blend_bwd"]) <= 0:
@@ -2442,6 +2498,336 @@ def run_dino_episode(log_dir):
         raise AssertionError(f"DINO gate: decisions {log}, bank "
                              f"{row['bank_size']}")
     return row
+
+
+def random_lpips_checkpoint(path, seed=0):
+    """A full lpips.LPIPS state_dict at AlexNet's widths (net.sliceK.J.*,
+    lin<i>.model.1.weight, scaling_layer.*) with random weights from
+    `seed` (He-scaled convolutions, non-negative lins), torch.save'd."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.models.perceptual import (
+        _ALEX_CONVS, _SCALE, _SHIFT, ALEX_WIDTHS)
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+    sd, cin = {}, 3
+    for sl, ((idx, k, _s, _p), cout) in enumerate(zip(_ALEX_CONVS,
+                                                      ALEX_WIDTHS), 1):
+        sd[f"net.slice{sl}.{idx}.weight"] = t(
+            rng.normal(size=(cout, cin, k, k)) * np.sqrt(2.0 / (cin * k * k)))
+        sd[f"net.slice{sl}.{idx}.bias"] = t(rng.normal(size=cout) * 0.1)
+        cin = cout
+    for i, c in enumerate(ALEX_WIDTHS):
+        sd[f"lin{i}.model.1.weight"] = t(np.abs(rng.normal(
+            size=(1, c, 1, 1))) * 0.1)
+    sd["scaling_layer.shift"] = t(_SHIFT[None, :, None, None])
+    sd["scaling_layer.scale"] = t(_SCALE[None, :, None, None])
+    torch.save(sd, path)
+
+
+def random_vit_checkpoint(path, seed=1):
+    """A ViT-S/14 at DINOv2's widths (D 384, 12 blocks, a 37 x 37
+    position grid, LayerScale) with random weights from `seed`, saved as
+    DINOv2 does ({"model": state_dict})."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.models.perceptual import DinoViT
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in DinoViT().state_dict().items():
+        if k.endswith("gamma"):
+            x = rng.uniform(0.05, 0.3, v.shape)
+        elif "norm" in k and k.endswith("weight"):
+            x = 1.0 + 0.1 * rng.normal(size=v.shape)
+        else:
+            x = 0.02 * rng.normal(size=v.shape)
+        sd[k] = torch.from_numpy(np.asarray(x, np.float32))
+    torch.save({"model": sd}, path)
+
+
+def check_perceptual(ckpt_dir):
+    """LPIPS(alex) and the ViT-S/14 at their real widths, random weights
+    written as checkpoints and loaded through the port's loaders: the
+    card against the same modules on the CPU on PERCEPTUAL_PAIRS image
+    pairs at PERCEPTUAL_SIZE² (LPIPS rel 1e-4; the ViT's tokens within
+    1e-4 of their largest; ViTPatchExtractor's selection the same, its
+    descriptors within 1e-4), timed (TF32 off inside the modules).
+    Returns (row, LPIPS checkpoint, ViT checkpoint)."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.models.perceptual import (
+        DinoViT, LPIPSAlex, ViTPatchExtractor, load_torch_lpips,
+        load_torch_vit)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    lp_path = os.path.join(ckpt_dir, "lpips_alex.pth")
+    vit_path = os.path.join(ckpt_dir, "dinov2_vits14.pth")
+    random_lpips_checkpoint(lp_path)
+    random_vit_checkpoint(vit_path)
+    lp_params = load_torch_lpips(lp_path)
+    vit_params, heads = load_torch_vit(vit_path)
+    lp_cpu = LPIPSAlex.from_flat(lp_params)
+    lp_card = LPIPSAlex.from_flat(lp_params).to("cuda")
+    vit_cpu = DinoViT.from_flat(vit_params, heads)
+    vit_card = DinoViT.from_flat(vit_params, heads).to("cuda")
+    rng = np.random.default_rng(2)
+    n, size = PERCEPTUAL_PAIRS, PERCEPTUAL_SIZE
+    # smooth images (noise blurred along the rows) and their perturbations
+    a = np.cumsum(rng.normal(size=(n, size, size, 3)), axis=2)
+    a = (a - a.min()) / (a.max() - a.min())
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1)
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    a_d, b_d = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    got = lp_card(a_d, b_d).cpu().numpy()
+    ref = lp_cpu(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    lp_rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
+    tok = vit_card(a_d).cpu().numpy()
+    tok_ref = vit_cpu(torch.from_numpy(a)).numpy()
+    tok_err = float(np.abs(tok - tok_ref).max())
+    tok_max = float(np.abs(tok_ref).max())
+    mask = np.zeros((size, size), bool)
+    mask[size // 4: 3 * size // 4, size // 3: 2 * size // 3] = True
+    ex_card = ViTPatchExtractor(vit_params, heads, device="cuda")
+    ex_cpu = ViTPatchExtractor(vit_params, heads, device="cpu")
+    d_card, d_cpu = ex_card(a[0], mask), ex_cpu(a[0], mask)
+    row = dict(
+        lpips_pairs=n, size=size, lpips_mean=float(ref.mean()),
+        lpips_rel_err_max=lp_rel,
+        lpips_ms_per_pair=cuda_ms(lambda: lp_card(a_d, b_d), 10) / n,
+        vit_heads=heads, vit_tokens=list(tok.shape[1:]),
+        vit_pos_grid=int(round(float(np.sqrt(
+            vit_params["pos_embed"].shape[1] - 1)))),
+        vit_err_max=tok_err, vit_largest=tok_max,
+        vit_ms_per_call=cuda_ms(lambda: vit_card(a_d[:1]), 10),
+        vit_ms_batch8=cuda_ms(lambda: vit_card(a_d), 5),
+        extractor_patches=int(d_card.shape[0]),
+        extractor_err_max=float(np.abs(d_card - d_cpu).max())
+        if d_card.shape == d_cpu.shape else None)
+    if not (heads == 6 and row["vit_pos_grid"] == 37
+            and tok.shape[1:] == ((size // 14) ** 2, 384)):
+        raise AssertionError(f"ViT-S/14 widths: {row}")
+    if not (np.isfinite(got).all() and lp_rel <= 1e-4):
+        raise AssertionError(f"LPIPS off the CPU: {got} vs {ref}")
+    if not (np.isfinite(tok).all() and tok_err <= 1e-4 * tok_max):
+        raise AssertionError(f"ViT tokens off the CPU by {tok_err} of "
+                             f"{tok_max}")
+    if (d_card.shape != d_cpu.shape or len(d_card) == 0
+            or row["extractor_err_max"] > 1e-4):
+        raise AssertionError(f"ViTPatchExtractor: card {d_card.shape}, "
+                             f"CPU {d_cpu.shape}")
+    return row, lp_path, vit_path
+
+
+class _Quat:
+    def __init__(self, w, x, y, z):
+        self.w, self.x, self.y, self.z = w, x, y, z
+
+
+def _agent_state(x, z, yaw, height=1.25):
+    """habitat's AgentState shape: position, rotation (wxyz, a yaw about
+    +y) and the rgb and depth sensors' states, all at the agent."""
+    import types
+
+    def one():
+        return types.SimpleNamespace(
+            position=np.array([x, height, z]),
+            rotation=_Quat(np.cos(yaw / 2), 0.0, np.sin(yaw / 2), 0.0))
+    st = one()
+    st.sensor_states = {"rgb": one(), "depth": one()}
+    return st
+
+
+class MockHabitatSim:
+    """The part of habitat_sim.Simulator that envs/habitat_adapter.py
+    uses, over a BoxScene: the agent's state, its sensors' observations
+    (FakeSim's raycast on the card at the rgb sensor's CV-frame c2w,
+    handed back as habitat does: uint8 rgb and float32 (H, W, 1) depth
+    on the host), the pathfinder (BoxScene.is_navigable and its
+    navigable samples) and no objects."""
+
+    def __init__(self, scene, camera, seed=0):
+        import types
+        from fisher_nerf_customized_tpu_torch.envs.fake_sim import FakeSim
+        self._fake = FakeSim(scene, camera, device="cuda")
+        self._state = _agent_state(0.0, 0.0, 0.0)
+        self.agents = [types.SimpleNamespace(set_state=self._set_state)]
+        rng = np.random.default_rng(seed)
+
+        def random_point():
+            x, z = scene.sample_navigable(rng, 1)[0]
+            return np.array([x, 0.0, z])
+        self.pathfinder = types.SimpleNamespace(
+            is_navigable=scene.is_navigable,
+            get_random_navigable_point=random_point)
+        self.scene = scene
+
+    def _set_state(self, state):
+        self._state = state
+
+    def get_agent_state(self):
+        return self._state
+
+    def get_sensor_observations(self):
+        import torch
+        from fisher_nerf_customized_tpu_torch.envs.habitat_adapter import (
+            sensor_c2w)
+        s = self._state.sensor_states["rgb"]
+        q = s.rotation
+        rgb, depth = self._fake.render_at(
+            sensor_c2w(s.position, (q.w, q.x, q.y, q.z)))
+        rgb = torch.round(torch.clamp(rgb, 0, 1) * 255).to(torch.uint8)
+        return dict(rgb=rgb.cpu().numpy(), depth=depth.cpu().numpy()[..., None])
+
+
+class MockHabitatEnv:
+    """habitat.Env's surface: reset, step by action name (move_forward
+    along the agent's -z unless the pathfinder blocks it, turn_left and
+    turn_right about +y by the config's angle), seed."""
+
+    def __init__(self, config, scene, camera):
+        self.config = config
+        self.sim = MockHabitatSim(scene, camera)
+        self.steps = []
+
+    def seed(self, s):
+        self.seeded = s
+
+    def reset(self):
+        return self.sim.get_sensor_observations()
+
+    def step(self, action):
+        self.steps.append(action)
+        st = self.sim.get_agent_state()
+        yaw = 2.0 * np.arctan2(st.rotation.y, st.rotation.w)
+        sim_cfg = self.config.habitat.simulator
+        targets = [st] + list(st.sensor_states.values())
+        if action == "move_forward":
+            d = sim_cfg.forward_step_size
+            dx, dz = -d * np.sin(yaw), -d * np.cos(yaw)
+            if self.sim.pathfinder.is_navigable(
+                    (st.position[0] + dx, 0.0, st.position[2] + dz)):
+                for tg in targets:
+                    tg.position[0] += dx
+                    tg.position[2] += dz
+        elif action in ("turn_left", "turn_right"):
+            yaw += np.deg2rad(sim_cfg.turn_angle) * (
+                1.0 if action == "turn_left" else -1.0)
+            for tg in targets:
+                tg.rotation = _Quat(np.cos(yaw / 2), 0.0, np.sin(yaw / 2),
+                                    0.0)
+        return self.sim.get_sensor_observations()
+
+
+def mock_habitat_config():
+    """The attribute tree of habitat's Hydra config that the adapter
+    sets (apply_sensor_overrides)."""
+    import types
+
+    def tree(d):
+        return types.SimpleNamespace(**{k: tree(v) if isinstance(v, dict)
+                                        else v for k, v in d.items()})
+    sensor = dict(width=640, height=480)
+    return tree(dict(habitat=dict(
+        environment=dict(max_episode_steps=500),
+        dataset=dict(type="PointNav-v1", split="train"),
+        simulator=dict(turn_angle=30, forward_step_size=0.25, scene="",
+                       scene_dataset="", agents=dict(main_agent=dict(
+                           sim_sensors=dict(rgb_sensor=dict(sensor),
+                                            depth_sensor=dict(sensor))))))))
+
+
+def run_habitat_episode(log_dir, lpips_path):
+    """The port's entry point with --sim habitat --dataset MP3D on SCENE
+    for HABITAT_STEPS steps, on the card, with a mock habitat module (its
+    Env a MockHabitatEnv over the scene's BoxScene) and --lpips_weights:
+    HabitatSim's observations uploaded each step, mapping events (K1, K2),
+    planning events (K3), then the evaluation over HABITAT_EVAL_POSES
+    poses through HabitatSim.render_at with LPIPS(alex) on each chunk.
+    The scene has no ground-truth cloud, so no recon.  HabitatSim._upload
+    is wrapped (a CUDA sync on each side) to time the host-to-device
+    upload per frame.  Returns the phase's row and the result."""
+    import types
+    import torch
+    from fisher_nerf_customized_tpu_torch import cli
+    from fisher_nerf_customized_tpu_torch.engine import eval as teval
+    from fisher_nerf_customized_tpu_torch.envs import habitat_adapter
+    from fisher_nerf_customized_tpu_torch.envs.fake_sim import BoxScene
+    from fisher_nerf_customized_tpu_torch.ops.camera import Camera
+    args = cli.build_parser().parse_args([
+        "--slam_config", os.path.join(HERE, "configs",
+                                      "mp3d_gaussian_FR_eccv.yaml"),
+        "--sim", "habitat", "--dataset", "MP3D", "--scenes_list", SCENE,
+        "--max_steps", str(HABITAT_STEPS),
+        "--eval_poses", str(HABITAT_EVAL_POSES),
+        "--lpips_weights", lpips_path, "--log_dir", log_dir,
+        "--name", "habitat"])
+    cfg = cli.load_config(args)
+    calib = cfg.SLAM.Dataset.Calibration
+    cam = Camera(fx=float(calib.fx), fy=float(calib.fy), cx=float(calib.cx),
+                 cy=float(calib.cy), width=int(calib.width),
+                 height=int(calib.height))
+    scene = BoxScene.multi_room(seed=SCENE_SEED)
+    envs = []
+
+    def make_env(config):
+        envs.append(MockHabitatEnv(config, scene, cam))
+        return envs[-1]
+
+    mock = types.ModuleType("habitat")
+    mock.Env = make_env
+    mock.get_config = lambda _path: mock_habitat_config()
+    rec = dict(uploads=0, upload_s=0.0)
+    upload = habitat_adapter.HabitatSim._upload
+
+    def timed_upload(self, rgb, depth):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = upload(self, rgb, depth)
+        torch.cuda.synchronize()
+        rec["upload_s"] += time.perf_counter() - t0
+        rec["uploads"] += 1
+        return out
+
+    sys.modules["habitat"] = mock
+    habitat_adapter.HabitatSim._upload = timed_upload
+    teval.set_lpips_weights(args.lpips_weights)
+    try:
+        result, mapper, wall_s, launches = timed_entry_point(args, cfg, SCENE)
+    finally:
+        teval.set_lpips_weights(None)
+        habitat_adapter.HabitatSim._upload = upload
+        del sys.modules["habitat"]
+    ev = result.get("eval", {})
+    timing = result["timing"]
+    row = dict(steps=result["steps"], done_reason=result["done_reason"],
+               wall_s=wall_s, steps_per_s=result["steps"] / wall_s,
+               planning_events=result["planning_events"],
+               coverage_2d_pct=result.get("coverage_2d_pct"),
+               n_gaussians=result["n_gaussians"],
+               env_steps=len(envs[0].steps) if envs else 0,
+               eval_poses=ev.get("n_poses"), psnr=ev.get("psnr"),
+               ssim=ev.get("ssim"), lpips_proxy=ev.get("lpips_proxy"),
+               lpips=ev.get("lpips"), depth_mae=ev.get("depth_mae"),
+               uploads=rec["uploads"],
+               upload_ms_per_frame=rec["upload_s"] * 1e3
+               / max(rec["uploads"], 1),
+               **{f"{name.replace('.', '_')}_s": timing[name]["total_s"]
+                  for name in ("tracking_mapping", "planning", "occupancy",
+                               "sim_step", "eval", "habvis", "pcl")
+                  if name in timing},
+               **{f"launches_{k}": v for k, v in launches.items()})
+    if result["steps"] != HABITAT_STEPS or row["env_steps"] != HABITAT_STEPS:
+        raise AssertionError(f"the habitat episode ended at step "
+                             f"{result['steps']} ({result['done_reason']}), "
+                             f"{row['env_steps']} env steps")
+    if result["planning_events"] < 1:
+        raise AssertionError("the habitat episode ran no planning event")
+    if min(launches[k] for k in ("blend", "blend_bwd", "fisher")) <= 0:
+        raise AssertionError(f"habitat episode: a kernel was not launched: "
+                             f"{launches}")
+    if ev.get("n_poses") != HABITAT_EVAL_POSES or not all(
+            np.isfinite(ev.get(k, np.nan))
+            for k in ("psnr", "ssim", "lpips", "lpips_proxy", "depth_mae")):
+        raise AssertionError(f"habitat episode eval: {ev}")
+    if "recon" in result:
+        raise AssertionError("a recon metric without a ground-truth cloud")
+    return row, result
 
 
 def png_size(path):
@@ -3165,10 +3551,23 @@ def main(argv=None):
                                    report["upen_check"].items()
                                    if not isinstance(v, list)}))
         del u_mapper, u_rec
+        # ---- the perceptual networks at their real widths (random
+        # checkpoints, the port's loaders), the DINO gate with histograms
+        # and with the ViT, the navigation images, then the habitat
+        # episode with LPIPS(alex) in its evaluation
+        report["perceptual"], lp_path, vit_path = check_perceptual(
+            os.path.join(log_dir, "perceptual"))
+        phase("perceptual", **fmt(report["perceptual"]))
         report["dino_gate"] = run_dino_episode(log_dir)
         phase("dino_gate", **fmt(report["dino_gate"]))
+        report["dino_gate_vit"] = run_dino_episode(log_dir, DINO_VIT_STEPS,
+                                                   vit_path)
+        phase("dino_gate", run="vit", **fmt(report["dino_gate_vit"]))
         report["nav_images"] = run_nav_images(log_dir)
         phase("nav_images", **fmt(report["nav_images"]))
+        h_row, h_result = run_habitat_episode(log_dir, lp_path)
+        report["habitat_episode"] = dict(h_row, timing=h_result["timing"])
+        phase("habitat_episode", **fmt(h_row))
 
         # ---- the legacy planning API, render_sh and the OccupancyMap on
         # the main episode's map, and the DD-PPO network
@@ -3645,17 +4044,17 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     def profiled(tag, fn):
+        # the device's activity only: with the host's too, the profiler
+        # recorded every aten call of a mapping event (~100 000) and took
+        # ~90 s to summarise one
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in
-                prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
+                prof.key_averages() if e.self_device_time_total > 0]
         rows.sort(key=lambda r: -r[1])
         total = sum(ms for _k, ms, _n in rows)
         names = ("blend", "blend_bwd", "fisher", "fisher_nf20")

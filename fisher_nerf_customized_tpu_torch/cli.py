@@ -1,5 +1,6 @@
 """Command-line entry point of the PyTorch port: one active-mapping
-episode per scene on the hermetic FakeSim, one JSON line per scene.
+episode per scene, on the hermetic FakeSim or on habitat-sim, one JSON
+line per scene.
 
     python -m fisher_nerf_customized_tpu_torch \\
         --slam_config configs/mp3d_gaussian_FR_eccv.yaml \\
@@ -34,17 +35,27 @@ ensemble from DIR/member_<i>.pkl (tools/train_predictors.py's output,
 or the JAX package's; cfg.policy.ensemble_dir), else the ensemble is
 untrained.  `--dino_gate` gates object mapping by the distinctiveness
 of each object frame's patch descriptors (engine/dino_gate.py).
-`--set policy.save_nav_images True` writes the planning and top-down
-PNGs.
+`--dino_weights PATH` (a DINO / DINOv2 ViT torch checkpoint) gates with
+the ViT's patch descriptors instead (models/perceptual.py; it implies
+the gate on the object branch).  `--set policy.save_nav_images True`
+writes the planning and top-down PNGs.  `--lpips_weights PATH` (an
+LPIPS(alex) torch checkpoint) adds the real LPIPS(alex), `lpips`, to the
+evaluation beside lpips_proxy.
+
+`--sim habitat` runs the scenes on habitat-sim (envs/habitat_adapter.py:
+habitat-lab and habitat-sim must be installed, with the scenes under
+`data/` as the reference lays them out; `--dataset MP3D`, `gibson`,
+`hm3d`, `replica` or `habitat_test_scenes`).  Its scene has no
+ground-truth cloud, so the reconstruction metric and `--known_env` are
+skipped; with --object_scene it spawns habitat's wheeled_robot.
 
 The frontier-only pipeline (no Gaussian map, FBE goals, the planner's
 paths): `python -m fisher_nerf_customized_tpu_torch.main_navigation`
 with the same flags (main_navigation below); it writes
 pointcloud/global_pcl_<steps>.ply and result.json.
 
-Not ported yet (ROADMAP.md), and so raising NotImplementedError: `--sim
-habitat`, `--lpips_weights` and `--dino_weights` (the repository holds
-no weights and no habitat-sim).
+The repository holds no LPIPS or ViT weights and no habitat-sim: those
+three flags need files and packages from elsewhere.
 """
 from __future__ import annotations
 
@@ -56,10 +67,6 @@ import re
 import zlib
 
 import numpy as np
-
-_NOT_PORTED = ("{} is not ported to the PyTorch package yet (ROADMAP.md, "
-               "queue 1)")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("fisher_nerf_customized_tpu_torch")
@@ -95,11 +102,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--object_scene", action="store_true")
     p.add_argument("--dynamic_scene", action="store_true")
     p.add_argument("--known_env", action="store_true")
-    p.add_argument("--lpips_weights", default=None)
+    p.add_argument("--lpips_weights", default=None,
+                   help="LPIPS(alex) torch checkpoint: the real `lpips` "
+                        "beside lpips_proxy in the evaluation")
     p.add_argument("--dino_gate", action="store_true",
                    help="gate object mapping by descriptor "
                         "distinctiveness (histogram descriptors)")
-    p.add_argument("--dino_weights", default=None)
+    p.add_argument("--dino_weights", default=None,
+                   help="DINO / DINOv2 ViT torch checkpoint for the object "
+                        "gate (implies --dino_gate)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the episode (cuda unless asked)")
     p.add_argument("--set", dest="opts", nargs="*", default=None,
@@ -107,15 +118,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="config overrides applied last: KEY VALUE "
                         "[KEY VALUE ...] (dotted keys; the flag may repeat)")
     return p
-
-
-def _check_ported(args):
-    unported = [(args.sim != "fake", f"--sim {args.sim}"),
-                (args.lpips_weights is not None, "--lpips_weights"),
-                (args.dino_weights is not None, "--dino_weights")]
-    for on, what in unported:
-        if on:
-            raise NotImplementedError(_NOT_PORTED.format(what))
 
 
 def load_config(args):
@@ -167,19 +169,37 @@ def literal_overrides(groups) -> list:
 def _sample_gt(scene, density_per_m2: float = 2000.0):
     """Ground-truth surface cloud of 2000 points per m² of the scene's
     faces, clipped to 100 000 - 1 200 000 points (about 2.2 cm between
-    neighbours, well under the 5 cm threshold)."""
-    n = int(np.clip(scene.surface_area() * density_per_m2,
-                    100_000, 1_200_000))
+    neighbours, well under the 5 cm threshold); 400 000 points of a scene
+    that does not know its area, and None from one without a cloud
+    (HabitatScene)."""
+    if hasattr(scene, "surface_area"):
+        n = int(np.clip(scene.surface_area() * density_per_m2,
+                        100_000, 1_200_000))
+    else:
+        n = 400_000
     return scene.sample_surface_points(n)
 
 
 def make_sim(args, cfg, scene_id: str):
-    """FakeSim and its BoxScene for a scene id: `fake_apartment*` ids the
-    multi-room generator (`fake_apartment<X>x<Z>` sets the grid of
-    rooms, 3x3 by default), any other id the single-room default; the
-    scene's seed is the crc32 of the id (stable across processes).  With
-    --object_scene, the scene holds a SimObject (see the module
-    docstring), moved by the episode with --dynamic_scene."""
+    """The simulator and its scene for a scene id.  With --sim habitat, a
+    HabitatSim and its HabitatScene (with --object_scene, habitat's
+    wheeled_robot under <root_path>/habitat_example_objects_0.2, scaled
+    0.3, at a random navigable point).  Else FakeSim and its BoxScene:
+    `fake_apartment*` ids the multi-room generator
+    (`fake_apartment<X>x<Z>` sets the grid of rooms, 3x3 by default), any
+    other id the single-room default; the scene's seed is the crc32 of
+    the id (stable across processes).  With --object_scene, the scene
+    holds a SimObject (see the module docstring), moved by the episode
+    with --dynamic_scene."""
+    if args.sim == "habitat":
+        from .envs.habitat_adapter import HabitatScene, HabitatSim
+        hsim = HabitatSim(args, cfg, scene_id, device=args.device)
+        if args.object_scene:
+            hsim.spawn_object(os.path.join(
+                str(getattr(args, "root_path", "data")),
+                "habitat_example_objects_0.2/wheeled_robot"),
+                scale=0.3, semantic_id=100)
+        return hsim, HabitatScene(hsim)
     from .envs.fake_sim import BoxScene, FakeSim, SimObject
     from .ops.camera import Camera
     calib = cfg.SLAM.Dataset.Calibration
@@ -210,8 +230,11 @@ def make_sim(args, cfg, scene_id: str):
 
 def known_env_points(scene):
     """The known environment's cloud: 400 000 points of the scene's room
-    shells and obstacles, without the object."""
+    shells and obstacles, without the object; None for a scene without
+    boxes (HabitatScene), as in the JAX package."""
     from .envs.fake_sim import BoxScene
+    if not hasattr(scene, "room_lo"):
+        return None
     empty = BoxScene(room_lo=scene.room_lo, room_hi=scene.room_hi,
                      obstacles=scene.obstacles)
     return empty.sample_surface_points(400000)
@@ -232,7 +255,8 @@ def run_scene(args, cfg, scene_id: str):
                           dynamic_scene=args.dynamic_scene,
                           known_env_points=(known_env_points(scene)
                                             if args.known_env else None),
-                          device=args.device, dino_gate=args.dino_gate)
+                          device=args.device, dino_gate=args.dino_gate,
+                          dino_weights=args.dino_weights)
     if args.resume and args.checkpoint:
         mapper.resume(args.checkpoint)
     gt = _sample_gt(scene)
@@ -252,8 +276,9 @@ def run_scene(args, cfg, scene_id: str):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _check_ported(args)
     cfg = load_config(args)
+    from .engine.eval import set_lpips_weights
+    set_lpips_weights(args.lpips_weights)
     results = {}
     for scene_id in args.scenes_list:
         result, _mapper = run_scene(args, cfg, scene_id)
@@ -283,7 +308,6 @@ def run_navigation(args, cfg, scene_id: str):
 def main_navigation(argv=None):
     """The frontier-only pipeline, one JSON line per scene."""
     args = build_parser().parse_args(argv)
-    _check_ported(args)
     cfg = load_config(args)
     results = {}
     for scene_id in args.scenes_list:

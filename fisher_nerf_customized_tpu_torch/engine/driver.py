@@ -30,7 +30,13 @@ with uniform scores, first valid path) and 'random_walk'; with
 in the JAX package, any other name plans as FisherRF does, without the
 H_train prewarm.
 
-The object branch (`object_scene`, on a FakeSim with a SimObject): each
+The simulator is a FakeSim or an envs/habitat_adapter.py HabitatSim;
+what only FakeSim has (render_at_batch, prefetch, the scene's boxes) is
+taken where the sim has it, as in the JAX package.
+
+The object branch (`object_scene`, on a FakeSim with a SimObject or a
+HabitatSim with a spawned object, whose ground-truth cloud may be
+missing: the object curve is then not recorded): each
 step the object mask comes from the semantic channel; while it covers
 more than 20 pixels, the masked depth is accumulated in the object's
 canonical frame (`global_obj_pcl`) and a GaussianObjectSLAM tracks and
@@ -79,10 +85,13 @@ but never scored.  As in the JAX package, UPEN's grid is not
 checkpointed: a resumed UPEN episode starts a new grid at its first step
 (the JAX package's fails there, ROADMAP.md fault t).
 
-The DINO gate (`dino_gate` on the object branch, engine/dino_gate.py):
-the object's first frame enters the descriptor bank; each later object
-frame maps the object only if its masked patch descriptors are distinct
-from the bank's (then they join it).  `dino_log` lists (step,
+The DINO gate (`dino_gate` or `dino_weights` on the object branch,
+engine/dino_gate.py): the object's first frame enters the descriptor
+bank; each later object frame maps the object only if its masked patch
+descriptors are distinct from the bank's (then they join it).  The
+descriptors are the DINOv2 ViT's patch tokens with `dino_weights` (a
+checkpoint, models/perceptual.py, run on the mapper's device), else
+colour and gradient histograms.  `dino_log` lists (step,
 accepted).  As in the JAX package the bank is not checkpointed.
 
 With policy.save_nav_images, each planning event writes
@@ -143,7 +152,7 @@ class ActiveMapper:
                  object_scene: bool = False, dynamic_scene: bool = False,
                  known_env_points=None, device="cuda",
                  cluster_manager: ClusterStateManager | None = None,
-                 dino_gate: bool = False):
+                 dino_gate: bool = False, dino_weights: str | None = None):
         self.cfg = cfg
         self.sim = sim
         self.scene = scene                    # BoxScene (GT access) or None
@@ -164,14 +173,21 @@ class ActiveMapper:
         self.object_metrics = MetricsRecorder(f"{cfg.criterion}_OA",
                                               self.scene_id)
         self._obj_pcl_parts: list[np.ndarray] = []
-        # the DINO gate of object mapping (the histogram extractor)
+        # the DINO gate of object mapping: the ViT of a checkpoint
+        # (dino_weights), else the histogram extractor
         self.dino_bank = None
         self._dino_extractor = None
+        self._dino_on_device = bool(dino_weights)
         self.dino_log: list[tuple[int, bool]] = []
-        if self.object_scene and dino_gate:
+        if self.object_scene and (dino_gate or dino_weights):
             from .dino_gate import DinoBank, PatchDescriptorExtractor
             self.dino_bank = DinoBank()
-            self._dino_extractor = PatchDescriptorExtractor()
+            if dino_weights:
+                from ..models.perceptual import ViTPatchExtractor
+                self._dino_extractor = ViTPatchExtractor.from_checkpoint(
+                    dino_weights, device=device)
+            else:
+                self._dino_extractor = PatchDescriptorExtractor()
 
         self.slam = GaussianSLAM(cfg, eval_dir=self.eval_dir, device=device)
         self.planner = AstarPlanner(cfg, seed=seed, device=device,
@@ -360,11 +376,13 @@ class ActiveMapper:
         self.object_tracking = True
 
     def _dino_decide(self, obs, mask, t, force: bool = False) -> bool:
-        """The DINO gate on one object frame (its RGB pulled to the host
-        once): whether the frame joins the bank, and so may map the
-        object; `force` admits the object's first frame."""
+        """The DINO gate on one object frame: whether the frame joins the
+        bank, and so may map the object; `force` admits the object's
+        first frame.  The ViT takes the RGB where it lies; the histogram
+        extractor takes it on the host."""
+        rgb = obs["rgb"] if self._dino_on_device else _host(obs["rgb"])
         with self.timer.phase("dino_gate"):
-            descs = self._dino_extractor(_host(obs["rgb"]), mask)
+            descs = self._dino_extractor(rgb, mask)
             accepted = self.dino_bank.add_if_distinct(descs, force=force)
         self.dino_log.append((int(t), bool(accepted)))
         return accepted
@@ -747,8 +765,9 @@ class ActiveMapper:
                 # the object curve, against 20 000 surface samples (at the
                 # 1 cm protocol a sparser cloud is sampling-limited)
                 with self.timer.phase("obj_recon_metric"):
-                    self.record_object_metrics(
-                        t, obj.sample_surface_points(20000, frame="object"))
+                    gt_obj = obj.sample_surface_points(20000, frame="object")
+                    if gt_obj is not None:   # an object without a cloud
+                        self.record_object_metrics(t, gt_obj)
             if self.habvis is not None:
                 with self.timer.phase("habvis"):
                     self.habvis.update_fow_sim(obs["c2w"])

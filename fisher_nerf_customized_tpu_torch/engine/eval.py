@@ -19,8 +19,10 @@ and AUC curves.  The JAX package's engine/eval.py.
 lpips_proxy is a perceptual distance from three seeded random conv layers
 (the structure of LPIPS without pretrained weights), as in the JAX
 package.  Its convolutions run in full f32: on the card cuDNN would run
-them in TF32 by default.  Real LPIPS(alex) needs weights the repo does not
-have (set_lpips_weights).
+them in TF32 by default.  With set_lpips_weights(path) (the CLI's
+--lpips_weights) the real LPIPS(alex) of models/perceptual.py is reported
+beside it as `lpips`: by render_metrics, per pose by eval_navigation
+(each chunk's pairs in one batch) and per frame by eval_nvs.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import torch
 from scipy.spatial import cKDTree
 
 from ..ops.image import calc_psnr, calc_ssim, ssim_map
+from ..utils.precision import no_tf32
 
 logger = logging.getLogger(__name__)
 
@@ -69,8 +72,7 @@ def _lpips_feats(x):
     layers."""
     x = ((x - 0.5) * 2.0).permute(0, 3, 1, 2)
     outs = []
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                    deterministic=False, allow_tf32=False):
+    with no_tf32():
         for k in _lpips_weights(x.device):
             x = torch.relu(torch.nn.functional.conv2d(x, k, padding=1))
             n = x / (torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-8)
@@ -91,13 +93,24 @@ def lpips_proxy(img1, img2):
     return lpips_proxy_batch(img1[None], img2[None])[0]
 
 
+_LPIPS_NET = None        # set by set_lpips_weights
+
+
 def set_lpips_weights(path: str | None):
-    """Real LPIPS(alex) needs a weight file the repo does not have; None
-    (the default) keeps lpips_proxy alone."""
+    """Report the real LPIPS(alex) from a torch checkpoint
+    (models/perceptual.py::load_torch_lpips) beside lpips_proxy; None
+    turns it off.  The network moves to the images' device at use."""
+    global _LPIPS_NET
+    _LPIPS_NET = None
     if path:
-        raise NotImplementedError(
-            "LPIPS(alex) weights (--lpips_weights) are not ported to the "
-            "PyTorch package (ROADMAP.md, queue 1 item 6)")
+        from ..models.perceptual import LPIPSAlex, load_torch_lpips
+        _LPIPS_NET = LPIPSAlex.from_flat(load_torch_lpips(path))
+
+
+def lpips_alex_batch(img1, img2):
+    """LPIPS(alex) of each pair of (P, H, W, 3) stacks in [0, 1]: (P,) on
+    their device.  Needs set_lpips_weights."""
+    return _LPIPS_NET.to(img1.device)(img1, img2)
 
 
 def _as_tensor(x, device=None):
@@ -115,6 +128,8 @@ def render_metrics(render, gt_rgb, render_depth=None, gt_depth=None):
     out = dict(psnr=float(calc_psnr(render, gt_rgb)),
                ssim=float(calc_ssim(render, gt_rgb)),
                lpips_proxy=float(lpips_proxy(render, gt_rgb)))
+    if _LPIPS_NET is not None:
+        out["lpips"] = float(lpips_alex_batch(render[None], gt_rgb[None])[0])
     if render_depth is not None and gt_depth is not None:
         gt_depth = _as_tensor(gt_depth).detach().cpu().numpy()
         rd = _as_tensor(render_depth).detach().cpu().numpy()
@@ -151,7 +166,8 @@ def uniform_eval_poses(scene, n_poses: int, cam_height: float,
 def _batch_render_metrics(render, gt_rgb, depth, gt_depth):
     """(psnr, ssim, lpips_proxy, depth_mae), each (P,), of a pose stack:
     render, gt_rgb (P, H, W, 3); depth, gt_depth (P, H, W).  Depth MAE is
-    over the pixels with gt_depth > 0, divided by max(their count, 1)."""
+    over the pixels with gt_depth > 0, divided by max(their count, 1).
+    With LPIPS weights set, lpips (P,) is a fifth."""
     r = torch.clamp(render.float(), 0.0, 1.0)
     g = torch.clamp(gt_rgb.float(), 0.0, 1.0)
     mse = torch.mean((r - g) ** 2, dim=(1, 2, 3))
@@ -166,6 +182,8 @@ def _batch_render_metrics(render, gt_rgb, depth, gt_depth):
     mae = (torch.where(valid, torch.abs(depth - gt_depth),
                        torch.zeros_like(depth)).sum(dim=(1, 2))
            / torch.clamp(valid.sum(dim=(1, 2)), min=1))
+    if _LPIPS_NET is not None:
+        return psnr, ssim, lp, mae, lpips_alex_batch(r, g)
     return psnr, ssim, lp, mae
 
 
@@ -178,8 +196,10 @@ def eval_navigation(slam, sim, scene, n_poses: int = 2000,
     Each chunk of poses is rendered by slam.render_at_poses (one K1
     launch per pose), its ground truth by sim.render_at_batch (one
     raycast; per pose through sim.render_at for a sim without it), and
-    its metrics in one batch; one (4, P) pull per chunk.  A pose whose
-    SSIM falls outside [-1, 1.001] is logged and, with `out_dir`, its
+    its metrics in one batch, LPIPS(alex) too when its weights are set
+    (the JAX package then renders and scores pose by pose: the values
+    are the same); one (4, P) pull per chunk, (5, P) with LPIPS.  A pose
+    whose SSIM falls outside [-1, 1.001] is logged and, with `out_dir`, its
     inputs are dumped to ssim_anomaly_<i>.npz.  `seen_fn(x, z) -> bool`
     marks the poses inside the explored region: rows then carry `seen`
     and the summary the `*_seen` means and `n_seen`.  With `out_dir`,
@@ -200,8 +220,14 @@ def eval_navigation(slam, sim, scene, n_poses: int = 2000,
         gt_rgb, gt_depth = gt_rgb.to(dev), gt_depth.to(dev)
         mets = torch.stack(_batch_render_metrics(
             out["render"], gt_rgb, out["depth"], gt_depth)).cpu().numpy()
-        rows = [dict(psnr=float(ps), ssim=float(ss), lpips_proxy=float(lp),
-                     depth_mae=float(m)) for ps, ss, lp, m in mets.T]
+        rows = []
+        for col in mets.T:                # the JAX package's key order
+            m = dict(psnr=float(col[0]), ssim=float(col[1]),
+                     lpips_proxy=float(col[2]))
+            if len(col) == 5:
+                m["lpips"] = float(col[4])
+            m["depth_mae"] = float(col[3])
+            rows.append(m)
         for j, m in enumerate(rows):
             if not -1.0 <= m["ssim"] <= 1.001:
                 # SSIM outside its range means a degenerate input pair:
@@ -322,9 +348,9 @@ def eval_nvs(slam, frames, eval_every: int = 1, sil_thres: float = 0.5,
     skipped; of the rest every `eval_every`-th is rendered at its pose.
     A frame whose silhouette leaves more than `hole_pct_thres` % of the
     valid-depth pixels uncovered is invalid; the means are over valid
-    frames, the per-frame rows cover all.  PSNR, SSIM and lpips_proxy on
-    the valid-depth pixels; depth_rmse is a true RMSE, depth_l1 the
-    reference's "rmse"."""
+    frames, the per-frame rows cover all.  PSNR, SSIM, lpips_proxy (and
+    lpips with its weights set) on the valid-depth pixels; depth_rmse is
+    a true RMSE, depth_l1 the reference's "rmse"."""
     if hasattr(frames, "colors"):
         frames = list(zip(frames.colors, frames.depths, frames.c2ws))
     else:
@@ -356,13 +382,19 @@ def eval_nvs(slam, frames, eval_every: int = 1, sil_thres: float = 0.5,
         lp = float(lpips_proxy(im * m3, gt_rgb * m3))
         nv = max(int(valid_depth.sum()), 1)
         diff = (rdepth - gt_depth) * valid_depth
-        per_frame.append(dict(
+        row = dict(
             frame=test_idx, psnr=psnr, ssim=ssim, lpips_proxy=lp,
             depth_rmse=float(np.sqrt((diff ** 2).sum() / nv)),
             depth_l1=float(np.abs(diff).sum() / nv),
-            holes_pct=holes_pct))
+            holes_pct=holes_pct)
+        if _LPIPS_NET is not None:
+            row["lpips"] = float(lpips_alex_batch((im * m3)[None],
+                                                  (gt_rgb * m3)[None])[0])
+        per_frame.append(row)
     valid = np.asarray(valid_flags, bool)
     keys = ("psnr", "ssim", "lpips_proxy", "depth_rmse", "depth_l1")
+    if per_frame and "lpips" in per_frame[0]:
+        keys = keys + ("lpips",)
     if valid.any():
         avg = {k: float(np.mean([f[k] for f, v in zip(per_frame, valid)
                                  if v])) for k in keys}

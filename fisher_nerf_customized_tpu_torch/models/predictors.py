@@ -27,14 +27,10 @@ import pickle
 import numpy as np
 import torch
 
+from ..utils.precision import no_tf32
 from .networks import ResNetUNet
 
 _N_BLOCKS = 7
-
-
-def _no_tf32():
-    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                      deterministic=False, allow_tf32=False)
 
 
 def _flax_key(name: str) -> tuple[str, str, str | None]:
@@ -130,7 +126,7 @@ class OccupancyPredictor:
         x = torch.as_tensor(np.asarray(inputs, np.float32)
                             if not isinstance(inputs, torch.Tensor)
                             else inputs, device=self.device).float()
-        with _no_tf32():
+        with no_tf32():
             out = self.model(x.permute(0, 3, 1, 2))
         return out.permute(0, 2, 3, 1)
 
@@ -138,7 +134,7 @@ class OccupancyPredictor:
         """One Adam step on the batch's cross-entropy; returns the loss
         before the step."""
         y = torch.as_tensor(labels, device=self.device)
-        with _no_tf32():
+        with no_tf32():
             loss = cross_entropy_loss(self.logits(inputs), y)
             grads = torch.autograd.grad(loss, list(self.model.parameters()))
         self._adam(grads)

@@ -25,13 +25,14 @@ agree on logits, values, the hidden state and the argmax.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 
 import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from ..utils.precision import no_tf32
 
 # habitat resnet50: Bottleneck(expansion 4), layers [3, 4, 6, 3],
 # base_planes 32, ngroups 16 (= base_planes // 2)
@@ -41,20 +42,6 @@ _NGROUPS = 16
 _EXPANSION = 4
 _EMBED = 32          # the goal and previous-action embedding widths
 _FLAT_TARGET = 2048  # after_compression_flat_size
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    """cuDNN and cuBLAS in full f32 inside the block."""
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                        deterministic=False,
-                                        allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
 def compression_channels(input_hw: int) -> tuple[int, int]:
@@ -178,7 +165,7 @@ class DdppoNet(nn.Module):
         value (N,), new hidden)."""
         n = depth.shape[0]
         net = self.net
-        with _no_tf32():
+        with no_tf32():
             vis = net.visual_fc(net.visual_encoder(depth.permute(0, 3, 1, 2)))
             rho, phi = pointgoal[:, 0], pointgoal[:, 1]
             tgt = net.tgt_embeding(torch.stack(

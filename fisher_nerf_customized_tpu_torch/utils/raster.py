@@ -19,7 +19,9 @@ here on numpy and scipy.ndimage, written to give cv2's cells exactly:
   thick_line_box             cv2.line(..., thickness > 1), LINE_8,
                              between points inside the grid;
   fill_poly                  cv2.fillPoly for one contour, LINE_8;
-  write_png                  cv2.imwrite of an 8-bit color PNG.
+  write_png                  cv2.imwrite of an 8-bit color PNG;
+  read_png                   cv2.imread of an 8-bit gray, RGB or RGBA
+                             PNG (IMREAD_UNCHANGED, in RGB order).
 
 The drawing functions follow the integer and 16.16 fixed-point
 arithmetic of OpenCV's drawing.cpp (Bresenham lines, the convex fill of
@@ -506,3 +508,73 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw, 6))
                 + chunk(b"IEND", b""))
+
+
+def _unfilter(filt: int, line, prev, bpp: int):
+    """One PNG scanline (uint8) with its filter undone, given the row
+    above it (zeros for the first) and the bytes per pixel."""
+    out = line.astype(np.int32)
+    up = prev.astype(np.int32)
+    if filt == 0:
+        return line
+    if filt == 2:                               # Up
+        return ((out + up) & 0xFF).astype(np.uint8)
+    if filt == 1:                               # Sub: a running sum
+        return (np.cumsum(out.reshape(-1, bpp), axis=0) & 0xFF).astype(
+            np.uint8).reshape(-1)
+    res = np.zeros(len(line) + bpp, np.int32)   # bpp leading zeros
+    upz = np.concatenate([np.zeros(bpp, np.int32), up])
+    for i in range(len(line)):
+        a, b, c = res[i], upz[i + bpp], upz[i]
+        if filt == 3:                           # Average
+            pred = (a + b) >> 1
+        elif filt == 4:                         # Paeth
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        else:
+            raise ValueError(f"PNG filter type {filt}")
+        res[i + bpp] = (out[i] + pred) & 0xFF
+    return res[bpp:].astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit gray, RGB, gray+alpha or RGBA PNG (not interlaced): (H,
+    W) or (H, W, C) uint8, channels in the file's order (RGB, RGBA):
+    cv2.imread(path, IMREAD_UNCHANGED) with its BGR order reversed.  The
+    IDAT stream is inflated with zlib and each row's filter (None, Sub,
+    Up, Average, Paeth) undone."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path} is not a PNG")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + n
+    w, h, depth, ctype, _comp, _filt, interlace = hdr
+    channels = {0: 1, 2: 3, 4: 2, 6: 4}.get(ctype)
+    if depth != 8 or channels is None or interlace:
+        raise ValueError(f"{path}: only 8-bit gray, RGB, gray+alpha and "
+                         f"RGBA PNGs without interlace are read (bit "
+                         f"depth {depth}, color type {ctype}, interlace "
+                         f"{interlace})")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    stride = w * channels
+    rows = raw[:h * (stride + 1)].reshape(h, stride + 1)
+    img = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        prev = img[y] = _unfilter(int(rows[y, 0]), rows[y, 1:], prev,
+                                  channels)
+    return img.reshape(h, w) if channels == 1 else img.reshape(h, w,
+                                                                channels)

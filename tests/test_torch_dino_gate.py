@@ -166,7 +166,6 @@ def test_dino_gate_needs_the_object_branch(tmp_path):
     """Without --object_scene the gate is not made (as in the JAX
     package); --dino_gate parses and is handed to the driver."""
     args = cli.build_parser().parse_args(["--dino_gate", "--device", "cpu"])
-    cli._check_ported(args)
     assert args.dino_gate
     cfg = port_cfg(episode_cfg(tmp_path))
     cam = TCamera(fx=float(IMG), fy=float(IMG), cx=IMG / 2, cy=IMG / 2,
@@ -177,3 +176,40 @@ def test_dino_gate_needs_the_object_branch(tmp_path):
     gated = tdriver.ActiveMapper(cfg, sim, device="cpu", dino_gate=True,
                                  object_scene=True)
     assert isinstance(gated.dino_bank, tdg.DinoBank)
+
+
+def test_vit_gate_decides_as_jax(tmp_path):
+    """--dino_weights on the object branch: the driver's gate hands the
+    frame to the ViT as the tensor the sim returned (no host copy) and
+    decides as the JAX package's ViT extractor and bank do on the same
+    frames: the decisions equal, with a veto among them."""
+    from fisher_nerf_customized_tpu.models import perceptual as jp
+    from test_perceptual import _tiny_vit_params
+    p = _tiny_vit_params(np.random.default_rng(7))
+    ckpt = tmp_path / "vit.pth"
+    torch.save({k: torch.tensor(v) for k, v in p.items()}, ckpt)
+    cfg = port_cfg(episode_cfg(tmp_path))
+    cam = TCamera(fx=float(IMG), fy=float(IMG), cx=IMG / 2, cy=IMG / 2,
+                  width=IMG, height=IMG)
+    sim = tsim.FakeSim(tsim.BoxScene(), cam, device="cpu")
+    mapper = tdriver.ActiveMapper(cfg, sim, device="cpu", object_scene=True,
+                                  dino_weights=str(ckpt))
+    seen = []
+    extract = mapper._dino_extractor.__call__
+
+    def recording(rgb, mask):
+        seen.append(rgb)
+        return extract(rgb, mask)
+
+    mapper._dino_extractor = recording
+    ref_x, ref_bank = jp.ViTPatchExtractor(p, 1), jdg.DinoBank()
+    want = []
+    for t, (rgb, mask) in enumerate(images(3, n=8)):
+        frame = torch.from_numpy(rgb)
+        mapper._dino_decide({"rgb": frame}, mask, t, force=t == 0)
+        assert seen[-1] is frame
+        want.append((t, ref_bank.add_if_distinct(ref_x(rgb, mask),
+                                                 force=t == 0)))
+    assert mapper.dino_log == want
+    assert any(not a for _t, a in want), "no frame was vetoed"
+    assert len(mapper.dino_bank) == len(ref_bank) >= 1

@@ -21,6 +21,7 @@ the CPU, which never stop a tile early).
 """
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -244,8 +245,6 @@ def test_entry_point_runs_an_episode(tmp_path, capsys):
 
 # flags and settings of code paths the port now has: each case holds that
 # the setting is accepted where it was refused
-PORTED_FLAGS = (["--dino_gate"], ["--ensemble_dir", "ensemble"],
-                ["--object_scene", "--dino_gate"])
 
 
 def small_sim():
@@ -259,20 +258,27 @@ def small_sim():
                                   ["--lpips_weights", "alex.pth"],
                                   ["--ensemble_dir", "ensemble"],
                                   ["--object_scene", "--dino_gate"]])
-def test_entry_point_refuses_unported_flags(flag, tmp_path):
-    """An unported flag raises NotImplementedError.  The ported ones are
-    accepted: --dino_gate parses and reaches the driver (its bank made on
-    the object branch only), and --ensemble_dir to a missing directory
-    raises FileNotFoundError, as the JAX package's loader does."""
+def test_entry_point_refuses_unported_flags(flag, tmp_path, monkeypatch):
+    """No flag is refused any more.  Each is accepted and reaches its
+    code: --sim habitat asks for habitat-sim (not installed here;
+    tests/test_torch_habitat_adapter.py runs it on a mock), the
+    checkpoint flags (--lpips_weights, --dino_weights on the object
+    branch) and --ensemble_dir raise FileNotFoundError for a missing
+    file, as the JAX package's loaders do, and --dino_gate reaches the
+    driver (its bank made on the object branch only)."""
     argv = ["--device", "cpu", "--log_dir", str(tmp_path)]
-    if flag not in PORTED_FLAGS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(argv + flag)
+    if flag[0] == "--sim":
+        monkeypatch.setitem(sys.modules, "habitat", None)
+        with pytest.raises(ImportError, match="habitat-sim"):
+            cli.main(argv + flag + ["--dataset", "MP3D"])
+        return
+    if flag[0] == "--lpips_weights":
+        with pytest.raises(FileNotFoundError):
+            cli.main(argv + [flag[0], str(tmp_path / flag[1])])
         return
     if flag[0] == "--ensemble_dir":
         missing = str(tmp_path / flag[1])
         args = cli.build_parser().parse_args(argv + [flag[0], missing])
-        cli._check_ported(args)
         assert cli.load_config(args).policy.ensemble_dir == missing
         with pytest.raises(FileNotFoundError):
             cli.main(argv + [flag[0], missing, "--policy", "UPEN_fbe",
@@ -280,10 +286,18 @@ def test_entry_point_refuses_unported_flags(flag, tmp_path):
                              "8192"])
         return
     args = cli.build_parser().parse_args(argv + flag)
-    cli._check_ported(args)
+    cfg = port_cfg(episode_cfg(tmp_path))
+    if flag[0] == "--dino_weights":
+        missing = str(tmp_path / flag[1])
+        assert args.dino_weights == flag[1]
+        assert tdriver.ActiveMapper(cfg, small_sim(), device="cpu",
+                                    dino_weights=missing).dino_bank is None
+        with pytest.raises(FileNotFoundError):
+            tdriver.ActiveMapper(cfg, small_sim(), device="cpu",
+                                 object_scene=True, dino_weights=missing)
+        return
     assert args.dino_gate
-    mapper = tdriver.ActiveMapper(port_cfg(episode_cfg(tmp_path)),
-                                  small_sim(), device="cpu",
+    mapper = tdriver.ActiveMapper(cfg, small_sim(), device="cpu",
                                   object_scene=args.object_scene,
                                   dino_gate=args.dino_gate)
     assert (mapper.dino_bank is not None) == args.object_scene

@@ -230,9 +230,13 @@ def test_psnr_scatter_png(tmp_path):
 
 
 def test_lpips_weights_are_not_ported():
+    """LPIPS(alex) is ported (tests/test_torch_perceptual.py holds it to
+    the JAX package's); what stays refused is a checkpoint that is not
+    there.  None turns the metric off."""
     teval.set_lpips_weights(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         teval.set_lpips_weights("alex.pth")
+    assert teval._LPIPS_NET is None
 
 
 def test_eval_pose_curve():

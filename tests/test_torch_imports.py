@@ -1,7 +1,10 @@
 """The PyTorch port and chip_smoke.py must not import JAX (nor flax or
 optax) or anything of the JAX package (not even its JAX-free modules),
-nor OpenCV (cv2): the port runs on a machine without JAX and without cv2
-(utils/raster.py has the port's own form of each cv2 call)."""
+nor OpenCV (cv2), PIL or matplotlib: the port runs on a machine without
+JAX and without them (utils/raster.py has the port's own form of each
+cv2 call and its PNG reader and writer).  The optional packages of a
+few paths (habitat, habitat_sim, open3d, trimesh) are imported only by
+the module that gates them, inside the function that needs them."""
 import re
 from pathlib import Path
 
@@ -12,7 +15,14 @@ FILES = sorted((ROOT / "fisher_nerf_customized_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|cv2\b|flax\b|optax\b"
-    r"|fisher_nerf_customized_tpu\b(?!_torch))", re.MULTILINE)
+    r"|PIL\b|matplotlib\b|fisher_nerf_customized_tpu\b(?!_torch))",
+    re.MULTILINE)
+# each optional package and the one module that may import it (indented:
+# inside a function, never at import time)
+OPTIONAL = {"habitat": "envs/habitat_adapter.py",
+            "habitat_sim": "envs/habitat_adapter.py",
+            "open3d": "tools/extract_3d_model.py",
+            "trimesh": "tools/evaluation.py"}
 # the episode slice's modules: they must exist (test_no_jax_imports checks
 # them with every other file of the port)
 EPISODE_MODULES = [
@@ -44,6 +54,13 @@ PLANNING_API_MODULES = [
     "utils/clustering.py", "models/droid_wrapper.py", "planning/occ_map.py",
     "planning/ddppo_net.py", "planning/local_policy.py", "ops/sh.py",
     "ops/naive.py"]
+# the habitat adapter, perceptual networks and evaluation tools slice's
+HABITAT_TOOLS_MODULES = [
+    "envs/habitat_adapter.py", "models/perceptual.py", "utils/precision.py",
+    "tools/eval_render.py", "tools/eval_3d_reconstruction.py",
+    "tools/evaluation.py", "tools/auc_evaluation.py",
+    "tools/extract_3d_model.py", "tools/quality_check.py",
+    "tools/render_profile.py", "tools/capacity_probe.py"]
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -59,7 +76,23 @@ def test_episode_modules_are_checked():
     port = ROOT / "fisher_nerf_customized_tpu_torch"
     assert all(port / m in FILES
                for m in EPISODE_MODULES + EVAL_MODULES + OBJECT_MODULES
-               + KNOWN_ENV_MODULES + UPEN_MODULES + PLANNING_API_MODULES)
+               + KNOWN_ENV_MODULES + UPEN_MODULES + PLANNING_API_MODULES
+               + HABITAT_TOOLS_MODULES)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_optional_packages_stay_gated(path):
+    text = path.read_text()
+    rel = str(path.relative_to(ROOT / "fisher_nerf_customized_tpu_torch")) \
+        if path.name != "chip_smoke.py" else "chip_smoke.py"
+    for name, owner in OPTIONAL.items():
+        hits = re.findall(rf"^(\s*)(?:import|from)\s+{name}\b", text,
+                          re.MULTILINE)
+        if rel != owner:
+            assert not hits, f"{rel} imports {name}"
+        else:
+            assert hits and all(indent for indent in hits), \
+                f"{rel} imports {name} at module level"
 
 
 def test_forbidden_pattern_catches_jax_imports():
@@ -68,6 +101,7 @@ def test_forbidden_pattern_catches_jax_imports():
            "import fisher_nerf_customized_tpu",
            "    from fisher_nerf_customized_tpu.config import node",
            "import cv2", "    import cv2  # noqa", "from cv2 import line",
+           "from PIL import Image", "import matplotlib.pyplot as plt",
            "import flax.linen as nn", "from flax.core import FrozenDict",
            "import optax"]
     good = ["import torch", "from fisher_nerf_customized_tpu_torch.ops "
