@@ -318,6 +318,33 @@ before it) and the seconds since the start (at_s):
                    more object planning event on the object episode's
                    final state (its K2 launches are the probe-batched
                    ones);
+  sharded          the multi-rank mode (parallel/): first whether NCCL
+                   takes two ranks on the one card (a spawned pair and one
+                   all-reduce; it is expected to refuse, and the phase
+                   then runs over gloo, each CUDA tensor staged through a
+                   host copy); a single-rank 40-step FisherRF episode
+                   through the entry point (cli.run_scene) in a fresh
+                   process, for the record; then two spawned ranks run the
+                   same episode with --set tpu.mesh_axes.data 2, hashing
+                   the Gaussian state after every mapping event.  It fails
+                   unless the mapping, pose and H_train dispatches went
+                   through the sharded factories, K1, K2 and K3 (both
+                   widths) were launched on each rank, a planning event
+                   ran, every loss is finite and the two ranks' states are
+                   equal to the bit after every event and at the end;
+                   reports the first step whose pose parts from the
+                   episode's, n_gaussians against the single-rank run
+                   (within 25 %), and the walls and per-phase timers side
+                   by side.  On the episode phase's final map the same two
+                   ranks run the Gaussian-axis render (256x256) and Fisher
+                   diagonal (the 128x128 Fisher camera) at model = 2,
+                   held against the single-rank render (colour, depth,
+                   final T rtol 1e-4; radii equal) and fisher_diag_batch
+                   (rtol 5e-3) on the card; and each rank, in a world-1
+                   NCCL group of its own, gathers its pose scores through
+                   NCCL (equal to the bit to what it sent) and runs
+                   sharded_pose_scores against _pose_scores (rtol 1e-6:
+                   K3's scatter-add order);
   kernels          one line per kernel with its launches (the episode's;
                    the probe-batched K2's from the object episode, the
                    1-NN's from the known-env episode) and max error; K3's
@@ -327,7 +354,12 @@ Then one JSON line of per-kernel numbers, the card's name and power limit
 (nvidia-smi), and the last line {"ok": true, "device": {...}}.  Any
 failure raises: the exit code is then nonzero and no result line prints.
 With `--json PATH` every measured number also goes to PATH;
-`--kernels-only` skips the slice and stops after the kernel phases.
+`--kernels-only` skips the slice and stops after the kernel phases;
+`--sharded-cards N` (N cards) builds the kernels and runs only the
+sharded episode on N cards, one rank each over NCCL, beside one rank
+with the same minibatch (mapping_frames_per_iter N): the ranks' states
+equal to the bit, the dispatches sharded, the kernels launched, the
+walls and timers side by side.
 """
 import argparse
 import functools
@@ -431,6 +463,10 @@ LEGACY_DFS_CHECK_DEPTH = 3
 LEGACY_CHECK_POSES = 8
 DDPPO_STEPS = 3
 OCC_MAP_FRAMES = 10
+SHARDED_STEPS = 40      # the first planning event comes inside it
+SHARDED_RANKS = 2
+SHARDED_WALL_S = 420    # each spawned group's wall limit
+SHARDED_COLLECTIVE_S = 180
 
 
 T_START = time.perf_counter()
@@ -3302,6 +3338,386 @@ def check_occ_map(args, cfg, mapper):
     return row
 
 
+def _nccl_pair(rank, world, port):
+    """One all-reduce over NCCL between two ranks on the one card."""
+    import torch
+    import torch.distributed as dist
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    return float(x[0])
+
+
+def probe_nccl_pair():
+    """Whether NCCL takes SHARDED_RANKS ranks on the one card: (it does,
+    what happened)."""
+    from fisher_nerf_customized_tpu_torch.parallel.launch import run_ranks
+    try:
+        got = run_ranks(_nccl_pair, SHARDED_RANKS, backend="nccl",
+                        device="cuda", timeout_s=120,
+                        collective_timeout_s=60)
+    except RuntimeError as e:
+        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+        hit = [ln for ln in lines if "uplicate" in ln or "rror" in ln]
+        return False, (hit[-1] if hit else lines[-1])[:240]
+    return True, f"all_reduce gave {got}"
+
+
+def state_hash(state) -> str:
+    import hashlib
+    return hashlib.sha1(b"".join(
+        getattr(state, k).detach().cpu().numpy().tobytes()
+        for k in state._fields)).hexdigest()
+
+
+def sharded_args(log_dir, name, data, frames=None):
+    """The entry point's arguments of the sharded phase's episodes
+    (`frames`: tpu.mapping_frames_per_iter, the config's by default)."""
+    from fisher_nerf_customized_tpu_torch import cli
+    argv = ["--slam_config", os.path.join(HERE, "configs",
+                                          "mp3d_gaussian_FR_eccv.yaml"),
+            "--scenes_list", SCENE, "--max_steps", str(SHARDED_STEPS),
+            "--eval_poses", "0", "--log_dir", log_dir, "--name", name]
+    if data > 1:
+        argv += ["--set", "tpu.mesh_axes.data", str(data)]
+    if frames:
+        argv += ["--set", "tpu.mapping_frames_per_iter", str(frames)]
+    args = cli.build_parser().parse_args(argv)
+    return args, cli.load_config(args)
+
+
+def _sharded_rank(rank, world, _port, log_dir, model_inputs, frames=None):
+    """One rank of the sharded phase: the episode through the entry point
+    (mesh_axes.data = world), hashing the state after every mapping
+    event; with `model_inputs`, the Gaussian-axis render and Fisher
+    diagonal on that map and the world-1 NCCL check."""
+    import torch
+    import torch.distributed as dist
+    from fisher_nerf_customized_tpu_torch.models import slam as tslam
+    args, cfg = sharded_args(log_dir, f"sharded{world}", world, frames)
+    events = []
+    mapping_event = tslam.GaussianSLAM._mapping_event
+
+    def hashed(self, *a, **kw):
+        mapping_event(self, *a, **kw)
+        losses = self.last_losses.cpu().numpy()
+        events.append(dict(t=self.frame_idx + 1, hash=state_hash(self.state),
+                           finite=bool(np.isfinite(losses).all())))
+
+    tslam.GaussianSLAM._mapping_event = hashed
+    try:
+        result, mapper, wall_s, launches = timed_entry_point(args, cfg, SCENE)
+    finally:
+        tslam.GaussianSLAM._mapping_event = mapping_event
+    mapper.mlog.close()
+    slam = mapper.slam
+    out = dict(result=result, wall_s=wall_s, launches=launches,
+               events=events, hash=state_hash(slam.state),
+               poses=np.stack(slam.poses_w2c),
+               calls=dict(slam.sharded_calls),
+               mesh=None if slam.mesh is None else slam.mesh.shape,
+               frames_per_iter=slam.mc.frames_per_iter,
+               backend=dist.get_backend() if dist.is_initialized() else None,
+               card=torch.cuda.current_device())
+    del mapper, slam
+    torch.cuda.empty_cache()
+    if model_inputs is not None:
+        out["model_axis"] = model_axis_rank(rank, world, model_inputs)
+        out["nccl_world1"] = nccl_world1_rank(rank, world, model_inputs)
+    return out
+
+
+def _model_axis_tensors(inp, lo=None, hi=None):
+    """The map's render inputs (slots [lo, hi)) on the card."""
+    import torch
+    st = inp["state"]
+    sl = slice(lo, hi)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x)[sl], device="cuda")
+    n = len(st["means3D"])
+    active = torch.arange(n, device="cuda") < int(st["n_active"])
+    return (t(st["means3D"]), torch.exp(t(st["log_scales"])),
+            t(st["unnorm_rotations"]),
+            torch.sigmoid(t(st["logit_opacities"])[:, 0]),
+            t(st["rgb_colors"]), active[sl])
+
+
+def model_axis_rank(rank, world, inp):
+    """render_gaussian_sharded and fisher_diag_gaussian_sharded at
+    model = world on this rank's shard of the map: numpy outputs and the
+    kernel launches."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.parallel import (
+        fisher_diag_gaussian_sharded, make_mesh, render_gaussian_sharded)
+    mesh = make_mesh(data=1, model=world)
+    per = len(inp["state"]["means3D"]) // world
+    args = _model_axis_tensors(inp, rank * per, (rank + 1) * per)
+    w2c = torch.as_tensor(inp["w2c"], device="cuda")
+    zero_launches()
+    ren = render_gaussian_sharded(mesh, inp["camera"], inp["settings"])(
+        *args, w2c)
+    fis = fisher_diag_gaussian_sharded(
+        mesh, inp["fisher_camera"], inp["fisher_settings"],
+        inp["grad_value"], inp["full_chain"])(*args, w2c)
+    torch.cuda.synchronize()
+    return dict(launches=read_launches(),
+                **{f"render_{k}": v.detach().cpu().numpy()
+                   for k, v in ren.items()},
+                **{f"fisher_{k}": v.cpu().numpy() for k, v in fis.items()})
+
+
+def nccl_world1_rank(rank, world, inp):
+    """In a world-1 NCCL group of its own: this rank's pose scores
+    gathered through NCCL (against what it sent, to the bit), and
+    sharded_pose_scores against _pose_scores on the same poses."""
+    import torch
+    import torch.distributed as dist
+    from fisher_nerf_customized_tpu_torch.models.gaussian_state import (
+        state_from_numpy)
+    from fisher_nerf_customized_tpu_torch.models.slam import _pose_scores
+    from fisher_nerf_customized_tpu_torch.parallel.mesh import Mesh
+    from fisher_nerf_customized_tpu_torch.parallel.sharding import (
+        sharded_pose_scores)
+    groups = [dist.new_group([r], backend="nccl") for r in range(world)]
+    mesh = Mesh(np.array([[rank]]), rank, {"data": groups[rank],
+                                           "model": None})
+    state = state_from_numpy(inp["state"], len(inp["state"]["means3D"]),
+                             device="cuda")
+    w2cs = torch.as_tensor(inp["w2cs"], device="cuda")
+    h_inv = torch.as_tensor(inp["h_inv"], device="cuda")
+    fargs = (inp["fisher_camera"], inp["fisher_settings"],
+             inp["full_chain"], inp["grad_value"])
+    ref = _pose_scores(state, w2cs, h_inv, *fargs)
+    sent = ref.clone()
+    gathered = mesh.axis("data").all_gather(sent)
+    got = sharded_pose_scores(mesh, *fargs)(state, w2cs, h_inv,
+                                            async_op=True).wait()
+    torch.cuda.synchronize()
+    return dict(backend=dist.get_backend(groups[rank]),
+                gathered_equal=bool(torch.equal(gathered, sent)),
+                scores=got.cpu().numpy(), ref=ref.cpu().numpy())
+
+
+def model_axis_inputs(mapper, cands_w2cs):
+    """The episode's final map and the settings of its renders, as numpy
+    and NamedTuples for the spawned ranks."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.models.gaussian_state import (
+        state_to_numpy)
+    slam = mapper.slam
+    h_train = slam.compute_H_train()
+    return dict(state=state_to_numpy(slam.state),
+                w2c=np.asarray(slam.poses_w2c[-1], np.float32),
+                camera=slam.camera, settings=slam.settings,
+                fisher_camera=slam.fisher_camera,
+                fisher_settings=slam.fisher_settings,
+                grad_value=slam.fisher_grad_value,
+                full_chain=slam.fisher_full_chain,
+                w2cs=np.asarray(cands_w2cs, np.float32),
+                h_inv=(1.0 / (h_train + 0.1)).cpu().numpy())
+
+
+def check_model_axis(inp, ranks):
+    """The ranks' Gaussian-axis render and Fisher diagonal against the
+    single-rank render and fisher_diag_batch on the card."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.ops.fisher import fisher_diag_batch
+    from fisher_nerf_customized_tpu_torch.ops.rasterize import render
+    means, scales, quats, opac, colors, active = _model_axis_tensors(inp)
+    w2c = torch.as_tensor(inp["w2c"], device="cuda")
+    means_cam = means @ w2c[:3, :3].T + w2c[:3, 3]
+    ref = render(inp["camera"], means_cam, scales, quats, opac, colors,
+                 active=active, settings=inp["settings"])
+    fref = fisher_diag_batch(inp["fisher_camera"], w2c[None], means, scales,
+                             quats, opac, colors,
+                             grad_value=inp["grad_value"], active=active,
+                             settings=inp["fisher_settings"],
+                             full_chain=inp["full_chain"])
+    h_ref = fref["H"][0].cpu().numpy()
+    per = len(h_ref) // len(ranks)
+    row = dict(n_active=int(inp["state"]["n_active"]),
+               slots=len(h_ref), render_max_abs_err=0.0,
+               fisher_max_rel_err=0.0)
+    for r, out in enumerate(ranks):
+        m = out["model_axis"]
+        for k in ("color", "depth", "final_t"):
+            want = ref[k].detach().cpu().numpy()
+            np.testing.assert_allclose(m[f"render_{k}"], want, rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+            row["render_max_abs_err"] = max(
+                row["render_max_abs_err"],
+                float(np.abs(m[f"render_{k}"] - want).max()))
+        np.testing.assert_array_equal(
+            m["render_radii"], ref["radii"].cpu().numpy()[r * per:
+                                                          (r + 1) * per])
+        want = h_ref[r * per:(r + 1) * per]
+        np.testing.assert_allclose(m["fisher_H"], want, rtol=5e-3,
+                                   atol=1e-12)
+        big = np.abs(want) > 1e-6 * max(np.abs(h_ref).max(), 1e-30)
+        if big.any():
+            row["fisher_max_rel_err"] = max(row["fisher_max_rel_err"], float(
+                (np.abs(m["fisher_H"] - want)[big] / np.abs(want[big])).max()))
+        for name in ("blend", "fisher"):
+            if m["launches"][name] <= 0:
+                raise AssertionError(f"rank {r}: the model-axis paths did "
+                                     f"not launch {name}: {m['launches']}")
+        row[f"launches_rank{r}"] = m["launches"]
+    return row
+
+
+def check_ranks(ranks, data):
+    """The sharded episode's ranks: the mesh, the sharded dispatches,
+    K1, K2 and K3 (both widths) launched, finite losses, the steps, and
+    the states equal to the bit after every mapping event and at the
+    end."""
+    for r, out in enumerate(ranks):
+        if out["mesh"] != {"data": data, "model": 1}:
+            raise AssertionError(f"rank {r}: mesh {out['mesh']}")
+        if min(out["calls"].values()) <= 0:
+            raise AssertionError(f"rank {r}: a dispatch was not sharded: "
+                                 f"{out['calls']}")
+        need = {k: out["launches"][k] for k in
+                ("blend", "blend_bwd", "fisher", "fisher_nf20")}
+        if min(need.values()) <= 0:
+            raise AssertionError(f"rank {r}: a kernel was not launched: "
+                                 f"{out['launches']}")
+        if not all(e["finite"] for e in out["events"]):
+            raise AssertionError(f"rank {r}: a non-finite mapping loss")
+        if out["result"]["steps"] != SHARDED_STEPS:
+            raise AssertionError(f"rank {r} ended at step "
+                                 f"{out['result']['steps']}")
+    for r, out in enumerate(ranks[1:], 1):
+        if [e["hash"] for e in out["events"]] != \
+                [e["hash"] for e in ranks[0]["events"]] or \
+                out["hash"] != ranks[0]["hash"]:
+            split = next((a["t"] for a, b in zip(ranks[0]["events"],
+                                                 out["events"])
+                          if a["hash"] != b["hash"]), None)
+            raise AssertionError(f"rank {r}'s state parts from rank 0's at "
+                                 f"the mapping event of step {split}")
+    if ranks[0]["result"]["planning_events"] < 1:
+        raise AssertionError("no planning event in the sharded episode")
+
+
+def first_apart(poses_a, poses_b):
+    """The first step whose pose differs, or None."""
+    n = min(len(poses_a), len(poses_b))
+    return next((i for i in range(n)
+                 if not np.array_equal(poses_a[i], poses_b[i])), None)
+
+
+def run_sharded(log_dir, ep_mapper, cands_w2cs, report):
+    """The sharded phase (see the module docstring); returns rank 0's
+    kernel launches in the two-rank episode."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.parallel.launch import run_ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    nccl_ok, nccl_msg = probe_nccl_pair()
+    backend = "nccl" if nccl_ok else "gloo"
+    row = dict(nccl_two_ranks_one_card="works" if nccl_ok else "refused",
+               backend=backend,
+               transport=("nccl" if nccl_ok else
+                          "gloo, CUDA tensors staged through host copies"),
+               probe_s=time.perf_counter() - t0)
+    phase("sharded", check="nccl_two_ranks_one_card",
+          result=row["nccl_two_ranks_one_card"], backend=backend,
+          detail=repr(nccl_msg))
+    # the single-rank episode in a fresh process, for the record
+    (single,) = run_ranks(_sharded_rank, 1, args=(log_dir, None),
+                          timeout_s=SHARDED_WALL_S, device="cuda")
+    inp = model_axis_inputs(ep_mapper, cands_w2cs)
+    ranks = run_ranks(_sharded_rank, SHARDED_RANKS,
+                      args=(log_dir, inp), backend=backend,
+                      device="cuda", timeout_s=SHARDED_WALL_S,
+                      collective_timeout_s=SHARDED_COLLECTIVE_S)
+    check_ranks(ranks, SHARDED_RANKS)
+    r0 = ranks[0]
+    res, res1 = r0["result"], single["result"]
+    n_ref = res1["n_gaussians"]
+    if abs(res["n_gaussians"] - n_ref) > 0.25 * max(n_ref, 1):
+        raise AssertionError(f"n_gaussians {res['n_gaussians']} against the "
+                             f"single-rank {n_ref}")
+    row.update(
+        steps=res["steps"], planning_events=res["planning_events"],
+        mapping_events=len(r0["events"]), ranks_bitwise=True,
+        first_pose_apart=first_apart(np.stack(ep_mapper.slam.poses_w2c),
+                                     r0["poses"]),
+        first_pose_apart_single=first_apart(single["poses"], r0["poses"]),
+        n_gaussians=res["n_gaussians"], n_gaussians_single=n_ref,
+        wall_s=r0["wall_s"], wall_s_single=single["wall_s"],
+        **{f"calls_{k}": v for k, v in r0["calls"].items()},
+        **{f"launches_{k}": v for k, v in r0["launches"].items()})
+    phase("sharded", check="episode", **fmt(row))
+    for name in ("tracking_mapping", "planning", "plan.h_train",
+                 "plan.global", "plan.path_eig", "recon_metric",
+                 "occupancy", "sim_step"):
+        if name in res["timing"] or name in res1["timing"]:
+            print(f"  timer {name}: ranks 2 {res['timing'].get(name)} | "
+                  f"one rank {res1['timing'].get(name)}")
+    mrow = check_model_axis(inp, ranks)
+    phase("sharded", check="model_axis", **fmt({
+        k: v for k, v in mrow.items() if not isinstance(v, dict)}))
+    nrow = {}
+    for r, out in enumerate(ranks):
+        nc = out["nccl_world1"]
+        if nc["backend"] != "nccl" or not nc["gathered_equal"]:
+            raise AssertionError(f"rank {r}: world-1 NCCL gather: {nc}")
+        np.testing.assert_allclose(nc["scores"], nc["ref"], rtol=1e-6)
+        nrow[f"rank{r}_max_rel_err"] = float(np.max(
+            np.abs(nc["scores"] - nc["ref"]) / np.abs(nc["ref"])))
+    phase("sharded", check="nccl_world1", gathered_bitwise=True,
+          **fmt(nrow))
+    report["sharded"] = dict(row, model_axis=mrow, nccl_world1=nrow,
+                             timing=res["timing"],
+                             timing_single=res1["timing"],
+                             phase_s=time.perf_counter() - t0)
+    return r0["launches"]
+
+
+def run_sharded_cards(n, log_dir, report):
+    """--sharded-cards N: the sharded episode on N cards, one rank each
+    (init_distributed picks NCCL), beside one rank with the same
+    minibatch (mapping_frames_per_iter N)."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.parallel.launch import run_ranks
+    if torch.cuda.device_count() < n:
+        raise AssertionError(f"{torch.cuda.device_count()} cards, need {n}")
+    (single,) = run_ranks(_sharded_rank, 1, args=(log_dir, None, n),
+                          timeout_s=SHARDED_WALL_S, device="cuda")
+    ranks = run_ranks(_sharded_rank, n, args=(log_dir, None),
+                      device="cuda", timeout_s=SHARDED_WALL_S,
+                      collective_timeout_s=SHARDED_COLLECTIVE_S)
+    check_ranks(ranks, n)
+    r0, res1 = ranks[0], single["result"]
+    if {out["backend"] for out in ranks} != {"nccl"} or \
+            sorted(out["card"] for out in ranks) != list(range(n)):
+        raise AssertionError(f"ranks not one a card over NCCL: "
+                             f"{[(o['backend'], o['card']) for o in ranks]}")
+    tm, tm1 = r0["result"]["timing"], res1["timing"]
+    row = dict(cards=n, backend=r0["backend"],
+               frames_per_iter=r0["frames_per_iter"],
+               frames_per_iter_single=single["frames_per_iter"],
+               mapping_events=len(r0["events"]), ranks_bitwise=True,
+               first_pose_apart_single=first_apart(single["poses"],
+                                                   r0["poses"]),
+               n_gaussians=r0["result"]["n_gaussians"],
+               n_gaussians_single=res1["n_gaussians"],
+               wall_s=r0["wall_s"], wall_s_single=single["wall_s"],
+               tracking_mapping_s=tm["tracking_mapping"]["total_s"],
+               tracking_mapping_s_single=tm1["tracking_mapping"]["total_s"],
+               **{f"calls_{k}": v for k, v in r0["calls"].items()},
+               **{f"launches_{k}": v for k, v in r0["launches"].items()})
+    report["sharded_cards"] = dict(row, timing=tm, timing_single=tm1)
+    phase("sharded_cards", **fmt(row))
+    for name in ("tracking_mapping", "planning", "plan.global",
+                 "plan.path_eig", "recon_metric", "occupancy"):
+        if name in tm or name in tm1:
+            print(f"  timer {name}: ranks {n} {tm.get(name)} | one rank "
+                  f"{tm1.get(name)}")
+
+
 def device_ms_and_launches(fn):
     """Device time (ms, the profiler's kernel rows) and kernel launches of
     one call of fn, after a warm-up call."""
@@ -3328,6 +3744,11 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", default=None,
                         help="also write every measured number to this file")
+    parser.add_argument("--sharded-cards", type=int, default=0,
+                        metavar="N", help="only build the kernels and run "
+                        "the sharded episode on N cards, one rank each "
+                        "over NCCL, beside one rank (prints no result "
+                        "line)")
     parser.add_argument("--kernels-only", action="store_true",
                         help="skip the slice and stop after the kernel "
                         "phases (a quick check of a kernel change; prints "
@@ -3384,6 +3805,14 @@ def main(argv=None):
                              "0 bytes spill loads")]
     if bad:
         raise AssertionError(f"K3 uses local memory: {bad}")
+
+    if opts.sharded_cards:
+        run_sharded_cards(opts.sharded_cards,
+                          os.path.join(HERE, "experiments", "chip_smoke"),
+                          report)
+        if opts.json:
+            write_json(opts.json, report)
+        return 0
 
     cfg = eccv_config()
 
@@ -4123,6 +4552,11 @@ def main(argv=None):
         max_abs_err=oc["max_abs_err"], ms=oc["ms"], plain_ms=oc["plain_ms"],
         bound_ms=oc["bound_ms"], bound_by=oc["bound_by"], library_ms=None)
 
+    # ---- sharded: the multi-rank mode on the one card (spawned ranks) ------
+    sharded_launches = run_sharded(
+        os.path.join(HERE, "experiments", "chip_smoke"), mapper,
+        np.linalg.inv(cands[:slam.pose_chunk]), report)
+
     # ---- kernels ----------------------------------------------------------
     launches_of = dict(ep_launches,
                        blend_bwd_probes=o_launches["blend_bwd_probes"],
@@ -4133,7 +4567,10 @@ def main(argv=None):
                                   navigation=nav_row["launches_nn1"])
     for name, e in entries.items():
         e["launches"] = launches_of[name]
+        # rank 0's launches in the sharded phase's two-rank episode
+        e["launches_sharded"] = sharded_launches.get(name, 0)
         phase("kernels", name=name, launches=e["launches"],
+              launches_sharded=e["launches_sharded"],
               max_abs_err=f"{e['max_abs_err']:.3g}", ms=f"{e['ms']:.4g}")
     report["kernels"] = list(entries.values())
     if opts.json:

@@ -56,6 +56,15 @@ pointcloud/global_pcl_<steps>.ply and result.json.
 
 The repository holds no LPIPS or ViT weights and no habitat-sim: those
 three flags need files and packages from elsewhere.
+
+Under torchrun (or SLURM) the entry points join the process group first
+(parallel/distributed.py); with `--set tpu.mesh_axes.data N` on N ranks
+the episode's mapping event, pose scores, H_train and path EIG split
+over the ranks, and only rank 0 writes files:
+
+    torchrun --nproc_per_node N -m fisher_nerf_customized_tpu_torch \\
+        --slam_config configs/mp3d_gaussian_FR_eccv.yaml \\
+        --scenes_list fake_apartment_0 --set tpu.mesh_axes.data N
 """
 from __future__ import annotations
 
@@ -266,17 +275,21 @@ def run_scene(args, cfg, scene_id: str):
     # the loop ended before step `steps`, with the sim at its pose: a
     # resume continues there
     mapper.save_checkpoint(steps, sim_c2w=sim.c2w, resume_t=steps)
-    mapper.global_pcl.save_ply(os.path.join(
-        eval_dir, "pointcloud", f"global_pcl_{steps}.ply"))
-    mapper.metrics.dump(os.path.join(eval_dir, "recon_metrics.yaml"))
-    with open(os.path.join(eval_dir, "result.json"), "w") as f:
-        json.dump(result, f, indent=2, default=float)
+    if mapper.writer:
+        mapper.global_pcl.save_ply(os.path.join(
+            eval_dir, "pointcloud", f"global_pcl_{steps}.ply"))
+        mapper.metrics.dump(os.path.join(eval_dir, "recon_metrics.yaml"))
+        with open(os.path.join(eval_dir, "result.json"), "w") as f:
+            json.dump(result, f, indent=2, default=float)
     return result, mapper
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = load_config(args)
+    # the process group under torchrun or SLURM (a no-op in one process)
+    from .parallel.distributed import init_distributed
+    init_distributed(device=args.device)
     from .engine.eval import set_lpips_weights
     set_lpips_weights(args.lpips_weights)
     results = {}
@@ -298,10 +311,12 @@ def run_navigation(args, cfg, scene_id: str):
     nav = FrontierNavigator(cfg, sim, scene=scene, eval_dir=eval_dir,
                             seed=args.seed, device=args.device)
     result = nav.frontier_test_navigation(recon_gt_points=_sample_gt(scene))
-    nav.global_pcl.save_ply(os.path.join(
-        eval_dir, "pointcloud", f"global_pcl_{result['steps']}.ply"))
-    with open(os.path.join(eval_dir, "result.json"), "w") as f:
-        json.dump(result, f, indent=2, default=float)
+    from .parallel.distributed import is_writer
+    if is_writer():
+        nav.global_pcl.save_ply(os.path.join(
+            eval_dir, "pointcloud", f"global_pcl_{result['steps']}.ply"))
+        with open(os.path.join(eval_dir, "result.json"), "w") as f:
+            json.dump(result, f, indent=2, default=float)
     return result, nav
 
 
@@ -309,6 +324,8 @@ def main_navigation(argv=None):
     """The frontier-only pipeline, one JSON line per scene."""
     args = build_parser().parse_args(argv)
     cfg = load_config(args)
+    from .parallel.distributed import init_distributed
+    init_distributed(device=args.device)
     results = {}
     for scene_id in args.scenes_list:
         result, _nav = run_navigation(args, cfg, scene_id)

@@ -123,6 +123,7 @@ import numpy as np
 import torch
 
 from ..models.slam import GaussianSLAM
+from ..parallel.distributed import is_writer
 from ..planning.planner import (AstarPlanner, LocalizationError,
                                 NoFrontierError, _host)
 from ..utils.cluster import ClusterStateManager, get_cluster_manager
@@ -161,6 +162,8 @@ class ActiveMapper:
         self.policy_name = policy_name or str(cfg.policy.name)
         self.eval_dir = eval_dir or os.path.join(cfg.workdir, cfg.run_name)
         os.makedirs(self.eval_dir, exist_ok=True)
+        # in a process group only rank 0 writes files
+        self.writer = is_writer()
 
         self.device = device
         self.object_scene = bool(object_scene)
@@ -228,7 +231,8 @@ class ActiveMapper:
                    else get_cluster_manager())
         self.timer = StepTimer()
         self.mlog = MetricsLogger(self.eval_dir, cfg.run_name,
-                                  use_wandb=bool(cfg.use_wandb))
+                                  use_wandb=bool(cfg.use_wandb),
+                                  enabled=self.writer)
         self.habvis = None
         # one entry per planning event that chose a path: its step, the
         # path scores (path EIG, or None for 'frontier' and UPEN) and the
@@ -452,7 +456,8 @@ class ActiveMapper:
                     points if points is not None else slam.gaussian_points,
                     None, expansion=expansion,
                     agent_pose=current_agent_pose[:3, 3], defer_scores=True,
-                    visualize=bool(self.cfg.policy.save_nav_images))
+                    visualize=(bool(self.cfg.policy.save_nav_images)
+                               and self.writer))
             gaussian_points = (points if points is not None
                                else slam.gaussian_points)
             if finish is None or isinstance(finish, tuple):
@@ -494,8 +499,11 @@ class ActiveMapper:
                 h_train = slam.compute_H_train()
             acc_idx = acc_step_indices(self.queue_size,
                                        int(self.cfg.acc_H_train_every))
-            # the path axis padded to 20 (padding rows score -inf)
+            # the path axis padded to 20 (padding rows score -inf); with
+            # a mesh the paths split over 'data', so to a multiple of it
             p_max = 20
+            if slam.mesh is not None:
+                p_max = slam.mesh_data * -(-p_max // slam.mesh_data)
             w2cs = np.tile(np.eye(4, dtype=np.float32),
                            (p_max, len(acc_idx), 1, 1))
             valid = np.zeros((p_max, len(acc_idx)), bool)
@@ -517,18 +525,27 @@ class ActiveMapper:
                     final_eigs[i] = np.log(max(float(eigs[gi]), 1e-30))
             with self.timer.phase("plan.path_eig"):
                 dev = slam.device
-                scores = path_eig_scores(
-                    slam.state, h_train, torch.as_tensor(w2cs, device=dev),
-                    torch.as_tensor(valid, device=dev),
-                    torch.as_tensor(lengths, device=dev),
-                    torch.as_tensor(final_eigs, device=dev),
-                    slam.fisher_camera, slam.fisher_settings,
-                    float(self.cfg.H_reg_lambda),
-                    float(self.cfg.path_pose_weight),
-                    float(self.cfg.path_point_weight),
-                    float(self.cfg.path_end_weight),
-                    bool(self.cfg.vol_weighted_H),
-                    float(slam.gs_pts_cnt()), slam.fisher_grad_value)
+                args = (slam.state, h_train,
+                        torch.as_tensor(w2cs, device=dev),
+                        torch.as_tensor(valid, device=dev),
+                        torch.as_tensor(lengths, device=dev),
+                        torch.as_tensor(final_eigs, device=dev))
+                weights = (float(self.cfg.H_reg_lambda),
+                           float(self.cfg.path_pose_weight),
+                           float(self.cfg.path_point_weight),
+                           float(self.cfg.path_end_weight))
+                if slam.mesh is not None:
+                    from ..parallel.sharding import sharded_path_eig
+                    scores = sharded_path_eig(
+                        slam.mesh, slam.fisher_camera, slam.fisher_settings,
+                        bool(self.cfg.vol_weighted_H),
+                        slam.fisher_grad_value)(
+                            *args, *weights, float(slam.gs_pts_cnt()))
+                else:
+                    scores = path_eig_scores(
+                        *args, slam.fisher_camera, slam.fisher_settings,
+                        *weights, bool(self.cfg.vol_weighted_H),
+                        float(slam.gs_pts_cnt()), slam.fisher_grad_value)
                 scores = scores.cpu().numpy()[:len(path_actions)]
                 best = int(np.argmax(scores))
         self.plan_log.append(dict(t=t, scores=scores, best=best,
@@ -773,7 +790,8 @@ class ActiveMapper:
                     self.habvis.update_fow_sim(obs["c2w"])
                 if self.dynamic_scene and obj is not None:
                     self.habvis.update_object(obj.translation)
-                if bool(self.cfg.policy.save_nav_images) and t % 20 == 0:
+                if (bool(self.cfg.policy.save_nav_images) and self.writer
+                        and t % 20 == 0):
                     self.habvis.save_vis_seen(
                         os.path.join(self.eval_dir, "nav_images"), t)
             # the checkpoint cadence is offset to the middle of the mapping
@@ -785,9 +803,11 @@ class ActiveMapper:
             if t >= 1000 and not self._pcl_1000_saved:
                 # the cloud at step 1000 (and at the end, by the CLI)
                 self._pcl_1000_saved = True
-                with self.timer.phase("pcl_export"):
-                    self.global_pcl.save_ply(os.path.join(
-                        self.eval_dir, "pointcloud", "global_pcl_1000.ply"))
+                if self.writer:
+                    with self.timer.phase("pcl_export"):
+                        self.global_pcl.save_ply(os.path.join(
+                            self.eval_dir, "pointcloud",
+                            "global_pcl_1000.ply"))
             if on_step is not None:
                 on_step(t, obs)
             t += 1
@@ -816,11 +836,14 @@ class ActiveMapper:
                 nav_eval = eval_navigation(self.slam, self.sim, self.scene,
                                            n_poses=n_eval_poses or 2000,
                                            cam_height=float(c2w[1, 3]),
-                                           out_dir=self.eval_dir,
+                                           out_dir=(self.eval_dir
+                                                    if self.writer
+                                                    else None),
                                            seen_fn=seen_fn)
             result["eval"] = {k: v for k, v in nav_eval.items()
                               if k != "per_pose"}
             result["timing"]["eval"] = self.timer.summary()["eval"]
+        if "eval" in result and self.writer:
             with open(os.path.join(self.eval_dir, "eval.json"), "w") as f:
                 json.dump(nav_eval["per_pose"], f)
             with open(os.path.join(self.eval_dir,
@@ -840,10 +863,10 @@ class ActiveMapper:
                     surface_dist_fn=getattr(self.scene, "surface_distance",
                                             None), device=self.device)
             result["auc"] = self.metrics.auc()
-        if self.metrics.steps:
+        if self.metrics.steps and self.writer:
             self.metrics.dump(os.path.join(self.eval_dir,
                                            "metrics_curve.yaml"))
-        if self.object_metrics.steps:
+        if self.object_metrics.steps and self.writer:
             self.object_metrics.dump(self._path("object_metrics_curve.yaml"))
         return result
 
@@ -880,7 +903,10 @@ class ActiveMapper:
         """Checkpoint the episode as step t.  sim_c2w: the simulator's
         current pose (the in-loop checkpoint comes after the sim stepped
         past the last tracked frame); resume_t: the step the resumed loop
-        starts at (default t + 1: step t is done)."""
+        starts at (default t + 1: step t is done).  In a process group
+        only rank 0 writes; the others resume from its files."""
+        if not self.writer:
+            return
         self.slam.save(t)
         self.planner.save(self._path("astar.npz"), ckpt_t=int(t))
         self.global_pcl.save(self._path("global_pcl.npz"), ckpt_t=int(t))

@@ -213,19 +213,28 @@ def adam_reset_slots(opt: AdamState, dest) -> AdamState:
                      count=opt.count)
 
 
-def state_from_numpy(d: dict, capacity: int, device="cuda") -> GaussianState:
-    """A GaussianState from numpy arrays (PARAM_KEYS + timestep +
-    n_active, as the JAX package's GaussianState or its checkpoint npz
-    holds them).  Only the first n_active rows are read; the rest of the
-    capacity is empty.  Inputs of any float type are cast to float32."""
+def state_from_numpy(d: dict, capacity: int, device="cuda"):
+    """A GaussianState from numpy arrays (PARAM_KEYS, n_active and,
+    optionally, timestep: as the JAX package's GaussianState or its
+    checkpoint npz holds them).  Only the first n_active rows are read;
+    the rest of the capacity is empty.  Inputs of any float type are cast
+    to float32.  Stacked per-scene states (n_active of shape (S,), every
+    array with a leading S, as the JAX package's multi-scene step takes
+    them) give a list of S GaussianStates."""
+    if np.ndim(d["n_active"]) == 1:
+        return [state_from_numpy({k: v[i] for k, v in d.items()}, capacity,
+                                 device=device)
+                for i in range(len(d["n_active"]))]
     n = int(np.asarray(d["n_active"]))
     if n > capacity:
         raise ValueError(f"{n} active Gaussians exceed capacity {capacity}")
     state = empty_state(capacity, device=device)
     upd = {}
     for k in PARAM_KEYS + ("timestep",):
+        if k not in d:
+            continue
         arr = getattr(state, k).clone()
-        src = np.asarray(d[k], np.float32)[:n]
+        src = np.array(d[k], np.float32)[:n]
         arr[:n] = torch.from_numpy(src.reshape(arr[:n].shape)).to(device)
         upd[k] = arr
     return state._replace(n_active=torch.tensor(n, dtype=torch.int32,

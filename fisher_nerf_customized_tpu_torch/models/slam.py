@@ -24,8 +24,13 @@ held fixed), keeping the best candidate, and twice the steps again when
 the depth loss stays at `depth_loss_thres` or above (`_tracking_phase`).
 With `mapping.use_gaussian_splatting_densification` each mapping event
 ends with a gradient clone/split (gaussian_state.gs_densify), whose
-children's offsets come from `densify_draw`.  The mesh-sharded mapping
-phase is not ported yet (ROADMAP.md) and raises NotImplementedError.
+children's offsets come from `densify_draw`.
+
+With `tpu.mesh_axes.data` > 1 in a process group of that many ranks
+(parallel/distributed.py) the mapping event, the pose scores, H_train
+and the driver's path EIG run through parallel/sharding.py's factories,
+each rank computing its shard; in one process the setting clamps to 1,
+as the JAX package's does on one device.
 
 Every tensor of a GaussianSLAM lives on its `device` ("cuda" by
 default); the ops pick the CUDA kernels for CUDA tensors and their plain
@@ -34,6 +39,8 @@ is the K2 kernel (ops/rasterize.py BlendFunction).
 """
 from __future__ import annotations
 
+import functools
+import logging
 import os
 from typing import NamedTuple
 
@@ -56,8 +63,7 @@ from .gaussian_state import (GaussianState, PARAM_KEYS, adam_init, adam_step,
                              state_to_numpy)
 from .keyframes import KeyframeBuffer, select_keyframes_overlap
 
-_NOT_PORTED = ("{} is not ported to the PyTorch package yet (ROADMAP.md, "
-               "queue 1)")
+logger = logging.getLogger(__name__)
 
 
 class MappingConfig(NamedTuple):
@@ -152,7 +158,8 @@ def _bin_frame(params, active, w2c, camera: Camera,
 
 def _mapping_phase_impl(state: GaussianState, kf_colors, kf_depths, kf_w2cs,
                         frame_choices, camera: Camera,
-                        settings: RenderSettings, mc: MappingConfig):
+                        settings: RenderSettings, mc: MappingConfig,
+                        axis=None):
     """One mapping event: `num_iters // frames_per_iter` Adam steps, each on
     the mean loss of the window frames `frame_choices[it]`, with periodic
     opacity pruning.
@@ -168,7 +175,18 @@ def _mapping_phase_impl(state: GaussianState, kf_colors, kf_depths, kf_w2cs,
     event.  Returns (state, losses (n_steps,), ga, dn, bin_overflow): ga
     and dn are the densification statistics (sum of |dL/d means3D| and
     the count of steps it was nonzero, per slot), bin_overflow the
-    binning truncation summed over the B window frames."""
+    binning truncation summed over the B window frames.
+
+    axis: a mesh axis (parallel/mesh.py::Axis) to shard the minibatch
+    over (parallel/sharding.py::sharded_mapping_phase): this rank takes
+    its block of the columns of frame_choices, and the gradients and
+    loss are pmean'd over the axis before the densify statistics and the
+    (replicated) Adam step, so that the update is the single-rank mean
+    over the whole minibatch up to float reduction order."""
+    frame_choices = np.asarray(frame_choices)
+    if axis is not None:
+        lo, hi = axis.shard(frame_choices.shape[1])
+        frame_choices = frame_choices[:, lo:hi]
     lrs = dict(means3D=mc.lr_means3D, rgb_colors=mc.lr_rgb,
                unnorm_rotations=mc.lr_rots, logit_opacities=mc.lr_logit_op,
                log_scales=mc.lr_log_scales)
@@ -189,15 +207,19 @@ def _mapping_phase_impl(state: GaussianState, kf_colors, kf_depths, kf_w2cs,
     ga = torch.zeros(cap, device=active.device)
     dn = torch.zeros(cap, device=active.device)
     losses = []
-    for it, frames in enumerate(np.asarray(frame_choices)):
+    for it, frames in enumerate(frame_choices):
         leaves = {k: v.requires_grad_() for k, v in params.items()}
         loss = torch.stack([
             _mapping_loss(leaves, state.n_active, kf_w2cs[i], kf_colors[i],
                           kf_depths[i], camera, settings, mc,
                           bins=frame_bins[i])
             for i in frames.tolist()]).mean()
-        grads = dict(zip(PARAM_KEYS, torch.autograd.grad(
-            loss, [leaves[k] for k in PARAM_KEYS])))
+        grads = torch.autograd.grad(loss, [leaves[k] for k in PARAM_KEYS])
+        if axis is not None:
+            *grads, loss = axis.pmean_all(list(grads)
+                                          + [loss.detach().reshape(1)])
+            loss = loss[0]
+        grads = dict(zip(PARAM_KEYS, grads))
         with torch.no_grad():
             gnorm = torch.linalg.norm(grads["means3D"], dim=-1)
             ga += gnorm
@@ -551,11 +573,10 @@ class GaussianSLAM:
             use_depth_loss_thres=bool(tr.use_depth_loss_thres))
         self.use_gt_poses = bool(tr.use_gt_poses)
         self.forward_prop = bool(tr.forward_prop)
-        ma = tpu.get("mesh_axes", None)
-        self.mesh_data = int(ma.data) if ma is not None else 1
         self.intrinsics = self.camera.intrinsics
         self.state = empty_state(int(tpu.capacity), device=self.device)
         self.pose_chunk = int(tpu.pose_chunk)
+        self._init_mesh(tpu.get("mesh_axes", None))
         # H_train keyframe budget per planning event (0 = exact full sum)
         self.h_train_window = int(tpu.get("h_train_window", 96))
 
@@ -572,6 +593,39 @@ class GaussianSLAM:
         self.selection = 0        # the legacy global_planning's round count
 
     # -- helpers ------------------------------------------------------------
+    def _init_mesh(self, axes):
+        """The multi-rank mode (tpu.mesh_axes.data > 1): the mesh over the
+        process group, made once, through which the mapping event, the
+        pose scores, H_train and the driver's path EIG are dispatched.
+        `data` is clamped to the ranks there are (one process runs
+        unsharded, as the JAX package on one device); frames_per_iter is
+        raised and pose_chunk rounded up to multiples of it."""
+        self.mesh = None
+        self.mesh_data = 1
+        data = int(axes.data) if axes is not None else 1
+        model = int(axes.model) if axes is not None else 1
+        if data > 1:
+            from ..parallel.distributed import world_size
+            n = world_size()
+            if data * model > n:
+                logger.warning(
+                    "mesh_axes data=%d model=%d needs %d ranks, have %d "
+                    "-> clamping data axis", data, model, data * model, n)
+                data = max(n // model, 1)
+        if data > 1:
+            from ..parallel.mesh import make_mesh
+            self.mesh = make_mesh(data=data, model=model)
+            self.mesh_data = data
+            f = self.mc.frames_per_iter
+            if f % data:
+                newf = data * -(-f // data)
+                logger.info("sharded mapping: frames_per_iter %d -> %d "
+                            "(multiple of data axis %d)", f, newf, data)
+                self.mc = self.mc._replace(frames_per_iter=newf)
+            self.pose_chunk = data * -(-self.pose_chunk // data)
+        # the sharded dispatches made (the multi-rank tests read them)
+        self.sharded_calls = dict(mapping=0, pose=0, h_train=0)
+
     @property
     def state(self) -> GaussianState:
         return self._state
@@ -796,9 +850,6 @@ class GaussianSLAM:
         """Densify, select the keyframe window, run the Adam phase, and
         with use_gaussian_splatting_densification clone and split."""
         cfgc = self.cfg
-        if self.mesh_data > 1:
-            raise NotImplementedError(_NOT_PORTED.format(
-                "The mesh-sharded mapping phase (tpu.mesh_axes.data > 1)"))
         self._flush_pending_bump()
         if bool(cfgc.mapping.add_new_gaussians) and time_idx > 0:
             # the previous event's guard, checked before this densify
@@ -838,10 +889,17 @@ class GaussianSLAM:
         n_steps = max(self.mc.num_iters // self.mc.frames_per_iter, 1)
         choices = self.rng.integers(
             0, min(b, b_max), size=(n_steps, self.mc.frames_per_iter))
-        state, losses, ga, dn, overflow = _mapping_phase_impl(
+        if self.mesh is not None:
+            from ..parallel.sharding import sharded_mapping_phase
+            phase = sharded_mapping_phase(self.mesh, self.camera,
+                                          self.settings, self.mc)
+            self.sharded_calls["mapping"] += 1
+        else:
+            phase = functools.partial(_mapping_phase_impl, camera=self.camera,
+                                      settings=self.settings, mc=self.mc)
+        state, losses, ga, dn, overflow = phase(
             self.state, torch.stack(win_colors), torch.stack(win_depths),
-            self._w2c(np.stack(win_w2cs)), choices, self.camera,
-            self.settings, self.mc)
+            self._w2c(np.stack(win_w2cs)), choices)
         self.state = state
         self.last_losses = losses
         if bool(cfgc.mapping.use_gaussian_splatting_densification):
@@ -929,9 +987,24 @@ class GaussianSLAM:
         if len(w2cs) == 0:
             return h_train
         ck = min(self.pose_chunk, len(w2cs))
+        hsum_fn = None
+        if self.mesh is not None:
+            # the data axis splits the chunk; the padding weighs 0
+            ck = self.mesh_data * -(-ck // self.mesh_data)
+            from ..parallel.sharding import sharded_fisher_hsum
+            hsum_fn = sharded_fisher_hsum(
+                self.mesh, self.fisher_camera, self.fisher_settings,
+                self.fisher_full_chain, self.fisher_grad_value)
         for i in range(0, len(w2cs), ck):
             chunk = w2cs[i:i + ck]
             n_real = len(chunk)
+            if hsum_fn is not None:
+                weights = torch.zeros(ck, device=self.device)
+                weights[:n_real] = 1.0
+                h_train = h_train + hsum_fn(
+                    self.state, self._w2c(_pad_poses(chunk, ck)), weights)
+                self.sharded_calls["h_train"] += 1
+                continue
             out = _fisher_batch(self.state, self._w2c(_pad_poses(chunk, ck)),
                                 self.fisher_camera, self.fisher_settings,
                                 self.fisher_full_chain,
@@ -951,18 +1024,32 @@ class GaussianSLAM:
         h_train_inv = 1.0 / (self.compute_H_train() + 0.1)
         w2cs = np.linalg.inv(poses)
         ck = self.pose_chunk
+        scores_fn = None
+        if self.mesh is not None:
+            from ..parallel.sharding import sharded_pose_scores
+            scores_fn = sharded_pose_scores(
+                self.mesh, self.fisher_camera, self.fisher_settings,
+                self.fisher_full_chain, self.fisher_grad_value)
         chunks = []
         for i in range(0, len(w2cs), ck):
             chunk = w2cs[i:i + ck]
-            s = _pose_scores(self.state, self._w2c(_pad_poses(chunk, ck)),
-                             h_train_inv, self.fisher_camera,
-                             self.fisher_settings, self.fisher_full_chain,
-                             self.fisher_grad_value)
-            chunks.append(s[:len(chunk)])
+            padded = self._w2c(_pad_poses(chunk, ck))
+            if scores_fn is not None:
+                # the gather is waited on in resolve(), so that pipelined
+                # planning keeps its overlap
+                s = scores_fn(self.state, padded, h_train_inv, async_op=True)
+                self.sharded_calls["pose"] += 1
+            else:
+                s = _pose_scores(self.state, padded, h_train_inv,
+                                 self.fisher_camera, self.fisher_settings,
+                                 self.fisher_full_chain,
+                                 self.fisher_grad_value)
+            chunks.append((s, len(chunk)))
 
         def resolve():
-            return torch.cat(chunks), torch.as_tensor(poses,
-                                                      device=self.device)
+            got = [(s.wait() if scores_fn is not None else s)[:n]
+                   for s, n in chunks]
+            return torch.cat(got), torch.as_tensor(poses, device=self.device)
         return resolve
 
     def pose_eval(self, poses, random_gaussian_params=None):
@@ -1077,6 +1164,7 @@ class GaussianSLAM:
         largest score stays under twice their uncertainty are deleted.
         With an eval_dir the DBSCAN labels go to
         global_planning_iter<frame>.npz."""
+        from ..parallel.distributed import is_writer
         from ..planning.candidates import generate_candidates
         ex = self.cfg.explore
         k = int(ex.sample_view_num)
@@ -1115,7 +1203,7 @@ class GaussianSLAM:
                     s = over_scores[labels == lab].max()
                     if s > best:
                         best_label, best = int(lab), s
-                if self.eval_dir:
+                if self.eval_dir and is_writer():
                     seg = np.full((len(score_points),), -1, np.int64)
                     seg[idx_range[over]] = labels
                     os.makedirs(self.eval_dir, exist_ok=True)

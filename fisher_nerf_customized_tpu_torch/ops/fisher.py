@@ -66,6 +66,28 @@ def fisher_kernel_inputs(camera: Camera, w2cs, means_world, scales, quats,
     return packed, pix_xy, nvalid, bins, prep
 
 
+def fisher_from_lists(camera: Camera, packed, pix_xy, slot_valid, table,
+                      n_out: int, chunk: int, grad_value: float = 1e-3):
+    """K3 on given per-(pose, tile) lists and the scatter of its slot rows
+    into an (n_out, 4) Fisher diagonal.
+
+    packed (B, T, K, 11|20) with each list's valid slots first (invalid
+    slots at opacity 0), pix_xy (T, 2, P), slot_valid (B, T, K) bool and
+    table (B, T, K) the row of [0, n_out) each slot adds to."""
+    nvalid = slot_valid.sum(dim=-1, dtype=torch.int32)
+    h_slots = cuda_fisher_slots(packed, pix_xy, nvalid, chunk,
+                                float(grad_value), float(camera.fx),
+                                float(camera.fy))
+    h_slots = torch.where(slot_valid[..., None], h_slots,
+                          torch.zeros_like(h_slots))
+    # On CUDA index_add_ sums a Gaussian's rows (one per touched tile) in
+    # a run-dependent order: f32 reassociation, ~1e-7 relative, far
+    # inside the rtol 5e-3 the Fisher comparisons use.
+    h = torch.zeros(n_out, 4, device=packed.device)
+    h.index_add_(0, table.reshape(-1), h_slots.reshape(-1, 4))
+    return h
+
+
 def fisher_diag_batch(camera: Camera, w2cs, means_world, scales, quats,
                       opacities, colors, grad_value: float = 1e-3,
                       active=None, settings: RenderSettings = RenderSettings(),
@@ -74,25 +96,17 @@ def fisher_diag_batch(camera: Camera, w2cs, means_world, scales, quats,
 
     w2cs (B, 4, 4).  Returns dict(H (B, N, 4), radii (B, N),
     visible (B, N))."""
-    st = settings
     nb = w2cs.shape[0]
     n = means_world.shape[0]
-    packed, pix_xy, nvalid, bins, prep = fisher_kernel_inputs(
+    packed, pix_xy, _nvalid, bins, prep = fisher_kernel_inputs(
         camera, w2cs, means_world, scales, quats, opacities, colors,
-        active=active, settings=st, full_chain=full_chain)
-    h_slots = cuda_fisher_slots(packed, pix_xy, nvalid, st.chunk,
-                                float(grad_value), float(camera.fx),
-                                float(camera.fy))
-    h_slots = torch.where(bins.slot_valid[..., None], h_slots,
-                          torch.zeros_like(h_slots))
-    # table entries are clamped into [0, N), so no index falls outside.
-    # On CUDA index_add_ sums a Gaussian's rows (one per touched tile) in
-    # a run-dependent order: f32 reassociation, ~1e-7 relative, far
-    # inside the rtol 5e-3 the Fisher comparisons use.
+        active=active, settings=settings, full_chain=full_chain)
+    # table entries are clamped into [0, N): pose b's rows go to
+    # [b N, (b + 1) N)
     offsets = torch.arange(nb, device=packed.device)[:, None, None] * n
-    h = torch.zeros(nb * n, 4, device=packed.device)
-    h.index_add_(0, (bins.table + offsets).reshape(-1),
-                 h_slots.reshape(-1, 4))
+    h = fisher_from_lists(camera, packed, pix_xy, bins.slot_valid,
+                          bins.table + offsets, nb * n, settings.chunk,
+                          grad_value)
     return dict(H=h.reshape(nb, n, 4), radii=prep.radius,
                 visible=prep.radius > 0)
 

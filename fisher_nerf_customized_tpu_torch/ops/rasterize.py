@@ -73,6 +73,15 @@ def blend_kernel_inputs(st: RenderSettings, prep, bins, opacities, colors):
     return packed, pix_xy, nvalid
 
 
+def blend_lists(st: RenderSettings, packed, pix_xy):
+    """K1 (K2 backward) over given per-tile lists: packed (T, K, 8+C) in
+    K1's layout, each list's valid slots first (column 7 the flag);
+    pix_xy (T, 2, P).  Returns (color (T, P, C), final_t, med_depth)."""
+    nvalid = (packed[..., 7] > 0.5).sum(dim=-1, dtype=torch.int32)
+    return BlendFunction.apply(packed.contiguous(), pix_xy.contiguous(),
+                               nvalid, st.chunk, st.max_depth)
+
+
 class BlendFunction(torch.autograd.Function):
     """K1 forward, K2 backward, with the JAX package's custom-VJP
     conventions (ops/rasterize.py `blend_packed_pallas_bwd`): the 0.99

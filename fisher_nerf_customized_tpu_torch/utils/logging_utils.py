@@ -17,14 +17,18 @@ class MetricsLogger:
     """Appends one JSON record per log call to
     <log_dir>/<run_name>_metrics.jsonl: {"step", "t" (unix seconds), the
     metrics as floats}; mirrors them to tensorboardX when it imports.
-    wandb is not ported (it needs the network)."""
+    wandb is not ported (it needs the network).  With enabled=False (a
+    rank other than 0 of a process group) it writes nothing."""
 
     def __init__(self, log_dir: str, run_name: str = "run",
-                 use_wandb: bool = False):
+                 use_wandb: bool = False, enabled: bool = True):
         if use_wandb:
             raise NotImplementedError(
                 "wandb logging (use_wandb) is not ported to the PyTorch "
                 "package (ROADMAP.md, queue 1)")
+        self._f = self._tb = None
+        if not enabled:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, f"{run_name}_metrics.jsonl")
         self._f = open(self.path, "a")
@@ -36,6 +40,8 @@ class MetricsLogger:
             pass
 
     def log(self, step: int, **metrics):
+        if self._f is None:
+            return
         rec = dict(step=int(step), t=time.time(), **{
             k: float(v) for k, v in metrics.items()})
         self._f.write(json.dumps(rec) + "\n")
@@ -45,7 +51,8 @@ class MetricsLogger:
                 self._tb.add_scalar(k, float(v), step)
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
         if self._tb is not None:
             self._tb.close()
 

@@ -62,6 +62,11 @@ HABITAT_TOOLS_MODULES = [
     "tools/extract_3d_model.py", "tools/quality_check.py",
     "tools/render_profile.py", "tools/capacity_probe.py"]
 
+# the scale-out slice's modules (torch.distributed)
+PARALLEL_MODULES = [
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
+    "parallel/sharding.py", "parallel/launch.py"]
+
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
@@ -77,7 +82,7 @@ def test_episode_modules_are_checked():
     assert all(port / m in FILES
                for m in EPISODE_MODULES + EVAL_MODULES + OBJECT_MODULES
                + KNOWN_ENV_MODULES + UPEN_MODULES + PLANNING_API_MODULES
-               + HABITAT_TOOLS_MODULES)
+               + HABITAT_TOOLS_MODULES + PARALLEL_MODULES)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -244,15 +244,35 @@ def test_render_psnr_matches(mapped):
         assert got > 10.0
 
 
-def test_unported_paths_raise(tmp_path):
-    """The mesh-sharded mapping phase still raises at the first mapping
-    event (tracking and gs_densify are ported: tests/test_torch_tracking.py
-    and tests/test_torch_slam_settings.py)."""
-    cfg = make_cfg(tcfg, tmp_path)
-    cfg.tpu.mesh_axes.data = 2
-    slam = tslam.GaussianSLAM(cfg, device="cpu")
-    color = np.zeros((IMG, IMG, 3), np.float32)
-    depth = np.ones((IMG, IMG), np.float32)
-    slam.track_rgbd(color, depth, gt_w2c=np.eye(4, dtype=np.float32))
-    with pytest.raises(NotImplementedError, match="mesh-sharded.*ROADMAP"):
-        slam.track_rgbd(color, depth, gt_w2c=np.eye(4, dtype=np.float32))
+def test_mesh_data_axis_clamps_in_one_process(tmp_path):
+    """tpu.mesh_axes.data = 2 no longer raises: in one process it clamps
+    to 1 and the mapping events run unsharded, equal to the bit to
+    data = 1 (the sharded paths: tests/test_torch_sharded_episode.py).
+    One torch thread: the CPU's multithreaded scatter-adds in the
+    backward do not sum in a fixed order."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        states = _clamp_runs(tmp_path)
+    finally:
+        torch.set_num_threads(n_threads)
+    for k in PARAM_KEYS:
+        assert torch.equal(getattr(states[0], k), getattr(states[1], k)), k
+
+
+def _clamp_runs(tmp_path):
+    rng = np.random.default_rng(0)
+    color = rng.uniform(0, 1, (IMG, IMG, 3)).astype(np.float32)
+    depth = rng.uniform(1, 3, (IMG, IMG)).astype(np.float32)
+    states = []
+    for data in (2, 1):
+        cfg = make_cfg(tcfg, tmp_path)
+        cfg.tpu.mesh_axes.data = data
+        slam = tslam.GaussianSLAM(cfg, device="cpu")
+        assert slam.mesh is None and slam.mesh_data == 1
+        for _ in range(4):
+            slam.track_rgbd(color, depth, gt_w2c=np.eye(4, dtype=np.float32))
+        assert slam.last_losses is not None
+        assert slam.sharded_calls == dict(mapping=0, pose=0, h_train=0)
+        states.append(slam.state)
+    return states
