@@ -242,6 +242,27 @@ before it) and the seconds since the start (at_s):
                    on average.  The first 32 candidates are scored again
                    on the CPU by the plain twins as the reference (same
                    argmax, Spearman >= 0.99);
+  replay           the slice's 60 frames (rgb, depth, c2w as FakeSim gave
+                   them) in a ReplaySim on the card; a fresh GaussianSLAM
+                   maps them (init on frame 0, then track_rgbd with the
+                   ground-truth poses: K1, K2) and eval_nvs renders every
+                   replayed frame but the first (K1).  Launch counts zeroed
+                   just before and read just after each: K1 at least once
+                   a frame inside eval_nvs.  Fails unless the metrics are
+                   finite, a frame is valid, n_eval_frames = 59, the first
+                   8 frames' PSNR, SSIM and depth_l1 with K1 agree with
+                   those with K1's plain twin on the card (rtol 1e-4), and
+                   the replayed map's n_active equals the slice's (the
+                   largest difference of their renders at a keyframe pose
+                   is printed).  Then the one-pose fisher_diag at that
+                   keyframe at the Fisher camera: K3 must launch, H must
+                   equal fisher_diag_batch at the identity on the same
+                   camera-frame means to the bit (both under
+                   torch.use_deterministic_algorithms) and agree with K3's
+                   twin (rtol 5e-3 with atol 1e-6 of the largest row);
+                   mark_visible there equal to the CPU's to the bit.
+                   Prints the metrics, the wall times, ms per replayed
+                   frame, fisher_diag's device ms and the visible count;
   probe            the slice's map (60 frames, 6 mapping events with Adam;
                    with --kernels-only the same map is built here); the
                    kernel phases below run on it;
@@ -330,10 +351,14 @@ before it) and the seconds since the start (at_s):
                    unless the mapping, pose and H_train dispatches went
                    through the sharded factories, K1, K2 and K3 (both
                    widths) were launched on each rank, a planning event
-                   ran, every loss is finite and the two ranks' states are
-                   equal to the bit after every event and at the end;
-                   reports the first step whose pose parts from the
-                   episode's, n_gaussians against the single-rank run
+                   ran, every loss is finite, the two ranks' states are
+                   equal to the bit after every event and at the end, and
+                   each rank agreed the preemption flag once a step (one
+                   all-reduce, `exit_poll` in its timer) where the single
+                   rank made no such collective; reports the polls'
+                   seconds and their share of the wall, the first step
+                   whose pose parts from the episode's, n_gaussians
+                   against the single-rank run
                    (within 25 %), and the walls and per-phase timers side
                    by side.  On the episode phase's final map the same two
                    ranks run the Gaussian-axis render (256x256) and Fisher
@@ -637,12 +662,13 @@ def eccv_config():
     return cfg
 
 
-def run_slam(cfg, dev, actions, events=None):
+def run_slam(cfg, dev, actions, events=None, frames=None):
     """GaussianSLAM.track_rgbd over the first frame and one frame per
     action, as an episode run calls it (ground-truth poses), on FakeSim
     fake_apartment_0.  With `events`, every step that fires a mapping event
     is timed (host clock between synchronizes) and appended there with its
-    first and last loss."""
+    first and last loss.  With `frames`, every observation is appended
+    there as the sim gave it."""
     from fisher_nerf_customized_tpu_torch.envs.fake_sim import (BoxScene,
                                                                 FakeSim)
     from fisher_nerf_customized_tpu_torch.models.slam import GaussianSLAM
@@ -651,9 +677,14 @@ def run_slam(cfg, dev, actions, events=None):
                   forward_step=float(cfg.forward_step_size),
                   turn_angle=float(cfg.turn_angle), device=dev)
     obs = sim.reset()
+    if frames is not None:
+        frames.append(obs)
     slam.track_rgbd(obs["rgb"], obs["depth"], np.linalg.inv(obs["c2w"]))
     for a in actions:
-        step(slam, sim.step(a), events)
+        obs = sim.step(a)
+        if frames is not None:
+            frames.append(obs)
+        step(slam, obs, events)
     return slam, sim
 
 
@@ -921,6 +952,156 @@ def count_cut_ties(mapper):
         binning._nearest_k = nearest
     rows["max_per_tile"] = slam.settings.max_per_tile
     return rows
+
+
+def check_replay(cfg, dev, frames, slice_slam):
+    """The replay phase (see the module docstring): (row, launches by
+    kernel in the phase)."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.engine.eval import eval_nvs
+    from fisher_nerf_customized_tpu_torch.envs import ReplaySim
+    from fisher_nerf_customized_tpu_torch.models import GaussianSLAM
+    from fisher_nerf_customized_tpu_torch.models import slam as tslam
+    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
+                                                      cuda_fisher, rasterize)
+    from fisher_nerf_customized_tpu_torch.ops import fisher as tfisher
+    from fisher_nerf_customized_tpu_torch.ops.projection import mark_visible
+    t_phase = time.perf_counter()
+    replay = ReplaySim([f["rgb"] for f in frames],
+                       [f["depth"] for f in frames],
+                       [f["c2w"] for f in frames], device=dev)
+    n = len(replay)
+    # mapping the replayed frames: init on frame 0, then track_rgbd
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam = GaussianSLAM(cfg, device=dev)
+    obs = replay.reset()
+    slam.init(obs["rgb"], obs["depth"], np.linalg.inv(obs["c2w"]))
+    for _ in range(n - 1):
+        obs = replay.step()
+        slam.track_rgbd(obs["rgb"], obs["depth"],
+                        gt_w2c=np.linalg.inv(obs["c2w"]))
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    map_launches = read_launches()
+    # eval_nvs over every replayed frame
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eval_nvs(slam, replay, eval_every=1)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = read_launches()
+    keys = ("psnr", "ssim", "depth_l1")
+    # the first 8 frames again with K1's plain twin on the card
+    head = ReplaySim(replay.colors[:9], replay.depths[:9], replay.c2ws[:9],
+                     device=dev)
+    kernel = rasterize.cuda_blend
+    rasterize.cuda_blend = cuda_blend._blend_walk
+    try:
+        twin = eval_nvs(slam, head, eval_every=1)["per_frame"]
+    finally:
+        rasterize.cuda_blend = kernel
+    got = np.array([[f[k] for k in keys] for f in res["per_frame"][:8]])
+    ref = np.array([[f[k] for k in keys] for f in twin])
+    twin_rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-12)
+    # the replayed map against the slice's, at the latest keyframe pose
+    kf_c2w = np.linalg.inv(slam.keyframes.w2cs[-1])
+    a, b = slam.render_at_pose(kf_c2w), slice_slam.render_at_pose(kf_c2w)
+    render_diff = float((a["render"] - b["render"]).abs().max())
+    depth_diff = float((a["depth"] - b["depth"]).abs().max())
+    # the one-pose Fisher at that keyframe, at the Fisher camera
+    w2c = slam._w2c(slam.keyframes.w2cs[-1])
+    params = slam.state.params()
+    means_cam, scales, quats, opac = tslam._gaussian_rendervars(params, w2c)
+    active = slam.state.active
+    fargs = (slam.fisher_camera, means_cam, scales, quats, opac,
+             params["rgb_colors"])
+    fkw = dict(grad_value=slam.fisher_grad_value, active=active,
+               settings=slam.fisher_settings,
+               full_chain=slam.fisher_full_chain)
+    zero_launches()
+    with torch.no_grad():
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            out = tfisher.fisher_diag(*fargs, **fkw)
+            torch.cuda.synchronize()
+            fisher_launches = read_launches()
+            eye = torch.eye(4, device=means_cam.device)[None]
+            batch = tfisher.fisher_diag_batch(fargs[0], eye, *fargs[1:],
+                                              **fkw)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        kernel = tfisher.cuda_fisher_slots
+        tfisher.cuda_fisher_slots = cuda_fisher.fisher_slots_plain
+        try:
+            twin_h = tfisher.fisher_diag(*fargs, **fkw)["H"]
+        finally:
+            tfisher.cuda_fisher_slots = kernel
+        fisher_ms = cuda_ms(lambda: tfisher.fisher_diag(*fargs, **fkw), 10)
+    h = out["H"]
+    bitwise = all(torch.equal(out[k], batch[k][0])
+                  for k in ("H", "radii", "visible"))
+    scale = float(twin_h.abs().max())
+    h_err = (h - twin_h).abs()
+    h_bad = int((h_err > 5e-3 * twin_h.abs() + 1e-6 * scale).sum())
+    # markVisible at that pose, the card against the CPU
+    means = params["means3D"][:slam.n_active]
+    vis = mark_visible(means, w2c)
+    vis_cpu = mark_visible(means.cpu(), w2c.cpu())
+    row = dict(
+        frames=n, n_eval_frames=res["n_eval_frames"],
+        n_valid_frames=res["n_valid_frames"],
+        **{k: res[k] for k in keys + ("lpips_proxy", "depth_rmse")},
+        map_s=map_s, eval_s=eval_s,
+        eval_ms_per_frame=eval_s * 1e3 / max(res["n_eval_frames"], 1),
+        k1_vs_twin_rel_max=float(twin_rel.max()),
+        n_active=slam.n_active, n_active_slice=slice_slam.n_active,
+        render_max_diff_vs_slice=render_diff,
+        depth_max_diff_vs_slice=depth_diff,
+        fisher_ms=fisher_ms, fisher_bitwise_vs_batch=bitwise,
+        fisher_rows_off_twin=h_bad,
+        fisher_max_abs_err=float(h_err.max()), fisher_max_value=scale,
+        fisher_visible=int(out["visible"].sum()),
+        mark_visible_count=int(vis.sum()),
+        mark_visible_equal_cpu=bool(torch.equal(vis.cpu(), vis_cpu)),
+        **{f"map_launches_{k}": v for k, v in map_launches.items() if v},
+        **{f"eval_launches_{k}": v for k, v in eval_launches.items() if v},
+        **{f"fisher_launches_{k}": v for k, v in fisher_launches.items()
+           if v})
+    metrics = np.array([res[k] for k in keys])
+    if not (np.isfinite(metrics).all() and res["n_valid_frames"] >= 1
+            and res["n_eval_frames"] == n - 1):
+        raise AssertionError(f"replay: eval_nvs malformed: {row}")
+    if eval_launches["blend"] < n - 1:
+        raise AssertionError(f"replay: K1 ran {eval_launches['blend']} "
+                             f"times in eval_nvs over {n - 1} frames")
+    if min(map_launches["blend"], map_launches["blend_bwd"]) <= 0:
+        raise AssertionError(f"replay: mapping launched {map_launches}")
+    if float(twin_rel.max()) > 1e-4:
+        raise AssertionError(f"replay: eval_nvs with K1 off its twin by "
+                             f"{float(twin_rel.max())}")
+    if slam.n_active != slice_slam.n_active:
+        raise AssertionError(f"replay: n_active {slam.n_active} against the "
+                             f"slice's {slice_slam.n_active}")
+    if fisher_launches["fisher"] + fisher_launches["fisher_nf20"] != 1:
+        raise AssertionError(f"replay: fisher_diag launched "
+                             f"{fisher_launches}")
+    if not bitwise:
+        raise AssertionError("replay: fisher_diag differs from "
+                             "fisher_diag_batch at the identity")
+    if scale <= 0 or h_bad:
+        raise AssertionError(f"replay: fisher_diag off K3's twin in {h_bad} "
+                             f"rows, max err {float(h_err.max())} of {scale}")
+    if not row["mark_visible_equal_cpu"]:
+        raise AssertionError("replay: mark_visible differs from the CPU's")
+    row["phase_s"] = time.perf_counter() - t_phase
+    launches = {k: map_launches[k] + eval_launches[k] + fisher_launches[k]
+                for k in map_launches}
+    del slam, replay, head
+    torch.cuda.empty_cache()
+    return row, launches
 
 
 def small_episode(device):
@@ -3635,6 +3816,13 @@ def run_sharded(log_dir, ep_mapper, cands_w2cs, report):
     check_ranks(ranks, SHARDED_RANKS)
     r0 = ranks[0]
     res, res1 = r0["result"], single["result"]
+    # the preemption poll: one agreed all-reduce a step on each rank of
+    # the group, none in one process
+    polls = [out["result"]["timing"].get("exit_poll") for out in ranks]
+    if any(p is None or p["count"] != SHARDED_STEPS for p in polls) \
+            or "exit_poll" in res1["timing"]:
+        raise AssertionError(f"exit polls {polls}, one rank "
+                             f"{res1['timing'].get('exit_poll')}")
     n_ref = res1["n_gaussians"]
     if abs(res["n_gaussians"] - n_ref) > 0.25 * max(n_ref, 1):
         raise AssertionError(f"n_gaussians {res['n_gaussians']} against the "
@@ -3647,6 +3835,10 @@ def run_sharded(log_dir, ep_mapper, cands_w2cs, report):
         first_pose_apart_single=first_apart(single["poses"], r0["poses"]),
         n_gaussians=res["n_gaussians"], n_gaussians_single=n_ref,
         wall_s=r0["wall_s"], wall_s_single=single["wall_s"],
+        **{f"exit_polls_rank{r}": p["count"] for r, p in enumerate(polls)},
+        **{f"exit_poll_s_rank{r}": p["total_s"] for r, p in enumerate(polls)},
+        exit_poll_share=max(p["total_s"] / out["wall_s"]
+                            for p, out in zip(polls, ranks)),
         **{f"calls_{k}": v for k, v in r0["calls"].items()},
         **{f"launches_{k}": v for k, v in r0["launches"].items()})
     phase("sharded", check="episode", **fmt(row))
@@ -4014,10 +4206,10 @@ def main(argv=None):
         cuda_blend.launches = 0
         cuda_blend_bwd.launches = 0
         cuda_fisher.launches = 0
-        events = []
+        events, slice_frames = [], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        slam, sim = run_slam(cfg, dev, ACTIONS, events)
+        slam, sim = run_slam(cfg, dev, ACTIONS, events, slice_frames)
         torch.cuda.synchronize()
         map_s = time.perf_counter() - t0
         for ev in events:
@@ -4125,6 +4317,13 @@ def main(argv=None):
         report["slice"] = slice_row
         report["mapping_events"] = events
         phase("slice", **fmt(slice_row))
+
+        # ---- replay: the slice's frames through ReplaySim, eval_nvs and
+        # the one-pose Fisher
+        report["replay"], replay_launches = check_replay(cfg, dev,
+                                                         slice_frames, slam)
+        del slice_frames
+        phase("replay", **fmt(report["replay"]))
 
     t0 = time.perf_counter()
     if opts.kernels_only:
@@ -4566,10 +4765,14 @@ def main(argv=None):
                                   known_env=k_launches["nn1"],
                                   navigation=nav_row["launches_nn1"])
     for name, e in entries.items():
-        e["launches"] = launches_of[name]
+        # the replay phase's launches (mapping, eval_nvs, fisher_diag)
+        # are added to the episode's
+        e["launches_replay"] = replay_launches.get(name, 0)
+        e["launches"] = launches_of[name] + e["launches_replay"]
         # rank 0's launches in the sharded phase's two-rank episode
         e["launches_sharded"] = sharded_launches.get(name, 0)
         phase("kernels", name=name, launches=e["launches"],
+              launches_replay=e["launches_replay"],
               launches_sharded=e["launches_sharded"],
               max_abs_err=f"{e['max_abs_err']:.3g}", ms=f"{e['ms']:.4g}")
     report["kernels"] = list(entries.values())

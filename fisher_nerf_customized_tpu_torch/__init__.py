@@ -6,3 +6,5 @@ kernels live in csrc/ and are built with nvcc on first use
 (ops/cuda_build.py).  Every entry point runs on "cuda" unless the caller
 passes device="cpu", where each kernel's plain PyTorch twin runs instead.
 """
+
+__version__ = "0.1.0"

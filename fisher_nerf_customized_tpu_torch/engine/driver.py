@@ -69,7 +69,12 @@ and SIGUSR1 set the cluster manager's exit flag (utils/cluster.py), and
 so does its time budget.  The loop polls it at the top of every step,
 before any work of step t: it checkpoints step t - 1 with the sim's pose
 and resume_t = t, and requeues.  Resuming that checkpoint takes the
-uninterrupted run's actions.
+uninterrupted run's actions.  In a process group the ranks agree the
+flag first (one all-reduce MAX of one int a step, timed as `exit_poll`),
+so that a signal or a time budget seen by one rank stops every rank at
+the same step: rank 0 writes the checkpoint, the group passes a barrier
+once it is on disk, only rank 0 calls scontrol, and every rank exits
+with the same code.  One process makes no collective.
 
 With `explore.prune_invisible`, each planning event first drops the
 Gaussians seen from no keyframe (GaussianSLAM.prune_invisible).
@@ -123,7 +128,7 @@ import numpy as np
 import torch
 
 from ..models.slam import GaussianSLAM
-from ..parallel.distributed import is_writer
+from ..parallel.distributed import any_rank, barrier, is_writer, world_size
 from ..planning.planner import (AstarPlanner, LocalizationError,
                                 NoFrontierError, _host)
 from ..utils.cluster import ClusterStateManager, get_cluster_manager
@@ -643,6 +648,15 @@ class ActiveMapper:
             return self._test_navigation(n_eval_poses, recon_gt_points,
                                          on_step)
 
+    def _exit_agreed(self) -> bool:
+        """The preemption poll: this process's flag, or in a process group
+        the flag of any rank (see the module docstring)."""
+        flag = self.cm.should_exit()
+        if world_size() == 1:
+            return flag
+        with self.timer.phase("exit_poll"):
+            return any_rank(flag)
+
     def _test_navigation(self, n_eval_poses, recon_gt_points, on_step):
         if self._resume_t is not None:
             obs = self.sim.get_observations()
@@ -653,12 +667,16 @@ class ActiveMapper:
         c2w = obs["c2w"]
         done_reason = "max_steps"
         while t < self.max_steps:
-            if self.cm.should_exit():
+            if self._exit_agreed():
                 # preempted: step t has not run, and the sim is at its
                 # pose, so the resume starts at t from there
                 self.save_checkpoint(max(t - 1, 0), sim_c2w=obs["c2w"],
                                      resume_t=t)
-                self.cm.requeue()
+                barrier()       # rank 0's files are on disk
+                if self.writer:
+                    self.cm.requeue()
+                else:           # scontrol once, from rank 0
+                    self.cm.requeue(call_scontrol=False)
             c2w = obs["c2w"]
             obj = getattr(self.sim, "dynamic_object", None)
             if self.dynamic_scene and obj is not None:

@@ -8,7 +8,8 @@ data.  Observations stay on the device as torch tensors.  A `SimObject`
 (a box that can random-walk or oscillate, the object branch's dynamic
 object) adds its box to the raycast and a `semantic` channel to the
 observations.  `FakeSim.prefetch(action)` launches the next frame's
-raycast ahead of `step(action)`, which then takes it.
+raycast ahead of `step(action)`, which then takes it.  `ReplaySim` plays
+back recorded frames and poses (what `engine/eval.py::eval_nvs` reads).
 
 Conventions: world y is up; cameras are +z forward / +y down (CV frame);
 depth images are z-depth along the camera axis.
@@ -543,3 +544,42 @@ class FakeSim:
     @property
     def intrinsics(self) -> np.ndarray:
         return self.camera.intrinsics
+
+
+class ReplaySim:
+    """Plays back a recorded trajectory: frames (rgb (H, W, 3), depth
+    (H, W)) and c2w poses, as arrays or tensors.  They are uploaded once,
+    at construction, to `colors` (F, H, W, 3) and `depths` (F, H, W)
+    float32 tensors on `device`; `c2ws` (F, 4, 4) stays a float32 host
+    array, as the poses are consumed on the host.  Observations follow
+    FakeSim's: rgb and depth tensors, c2w a numpy copy.  Each step moves
+    to the next frame, whatever the action, and the index clamps at the
+    last frame."""
+
+    def __init__(self, colors, depths, c2ws, device="cuda"):
+        self.device = torch.device(device)
+
+        def stack(frames):
+            return torch.stack([torch.as_tensor(f, dtype=torch.float32)
+                                .to(self.device) for f in frames])
+
+        self.colors = stack(colors)
+        self.depths = stack(depths)
+        self.c2ws = np.stack([np.asarray(p, np.float32) for p in c2ws])
+        self.t = 0
+
+    def __len__(self):
+        return len(self.colors)
+
+    def reset(self):
+        self.t = 0
+        return self.get_observations()
+
+    def get_observations(self):
+        i = min(self.t, len(self.colors) - 1)
+        return dict(rgb=self.colors[i], depth=self.depths[i],
+                    c2w=self.c2ws[i].copy())
+
+    def step(self, action_id: int = 0):
+        self.t += 1
+        return self.get_observations()

@@ -1,0 +1,4 @@
+from .gaussian_state import GaussianState, AdamState
+from .slam import GaussianSLAM
+
+__all__ = ["GaussianState", "AdamState", "GaussianSLAM"]

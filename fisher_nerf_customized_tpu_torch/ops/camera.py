@@ -39,3 +39,14 @@ class Camera(NamedTuple):
                       cy=self.cy / s, width=self.width // s,
                       height=self.height // s, near=self.near, far=self.far,
                       dilation=self.dilation / (s * s))
+
+
+def camera_from_intrinsics(K, width: int, height: int, near: float = 0.2,
+                           far: float = 100.0) -> Camera:
+    """The Camera of a 3x3 intrinsics matrix (array or tensor)."""
+    if hasattr(K, "detach"):
+        K = K.detach().cpu().numpy()
+    K = np.asarray(K)
+    return Camera(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                  cy=float(K[1, 2]), width=int(width), height=int(height),
+                  near=near, far=far)

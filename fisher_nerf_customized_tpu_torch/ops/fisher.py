@@ -111,6 +111,23 @@ def fisher_diag_batch(camera: Camera, w2cs, means_world, scales, quats,
                 visible=prep.radius > 0)
 
 
+def fisher_diag(camera: Camera, means_cam, scales, quats, opacities, colors,
+                grad_value: float = 1e-3, active=None,
+                settings: RenderSettings = RenderSettings(),
+                full_chain: bool = True):
+    """Fisher diagonal at one pose, the means already in its camera frame:
+    dict(H (N, 4) = [d mean_cam (3), d opacity], radii (N,), visible (N,)
+    = radii > 0).  fisher_diag_batch at the identity pose with a batch of
+    one: K3 on the card, its plain twin on the CPU; since means_cam I + 0
+    is exact, it equals that call to the bit."""
+    eye = torch.eye(4, dtype=means_cam.dtype, device=means_cam.device)
+    out = fisher_diag_batch(camera, eye[None], means_cam, scales, quats,
+                            opacities, colors, grad_value=grad_value,
+                            active=active, settings=settings,
+                            full_chain=full_chain)
+    return {k: v[0] for k, v in out.items()}
+
+
 def _image_to_tiles(img, nty: int, ntx: int, ts: int):
     """(..., H, W, C) image -> (..., T, P, C) tile-pixel layout, zeros in
     the padding: the adjoint of rasterize._tiles_to_image."""

@@ -106,6 +106,27 @@ def project_cov2d(means_cam, cov3d, camera: Camera):
     return (a, b, c_), (tx, ty, z)
 
 
+def project_cov2d_packed(means_cam, cov3d, camera: Camera):
+    """project_cov2d with (..., N, 3)-packed outputs: ((a, b, c) stacked,
+    (tx, ty, z) stacked)."""
+    (a, b, c_), (tx, ty, z) = project_cov2d(means_cam, cov3d, camera)
+    return torch.stack([a, b, c_], dim=-1), torch.stack([tx, ty, z], dim=-1)
+
+
+def mark_visible(means_world, w2c):
+    """The reference rasterizer's markVisible, with no render: (N,) bool,
+    True where the camera-frame depth z_view > 0.001 (its in_frustum test,
+    whose NDC bounds check is commented out upstream).  means_world
+    (N, 3), w2c (4, 4) on one device.  z_view is written out as
+    x r0 + y r1 + z r2 + t, in that order: a matvec would leave its
+    summation order to the BLAS, and a point within rounding of 0.001
+    could then fall on either side on the card and on the CPU."""
+    w2c = torch.as_tensor(w2c, dtype=torch.float32, device=means_world.device)
+    x, y, z = means_world.to(torch.float32).unbind(-1)
+    z_view = ((x * w2c[2, 0] + y * w2c[2, 1]) + z * w2c[2, 2]) + w2c[2, 3]
+    return z_view > 0.001
+
+
 def conic_mean_jac(means_cam, cov3d, camera: Camera, valid=None):
     """Per-Gaussian Jacobian d(conic)/d(mean_cam): (..., N, 3, 3), rows the
     conic entries (a, b, c) = (c'/det, -b'/det, a'/det), columns the

@@ -121,6 +121,26 @@ def is_writer() -> bool:
         or dist.get_rank() == 0
 
 
+def any_rank(flag: bool) -> bool:
+    """True on every rank if `flag` is true on any rank: one all-reduce
+    (MAX) of one int over the default group, on the rank's card under
+    NCCL and on the CPU under gloo.  Without a group, `flag` itself and
+    no collective."""
+    if world_size() == 1:
+        return bool(flag)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    x = torch.tensor([int(bool(flag))], dtype=torch.int32, device=dev)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX)
+    return bool(x.item())
+
+
+def barrier():
+    """dist.barrier over the default group; nothing without one."""
+    if world_size() > 1:
+        dist.barrier()
+
+
 def make_multihost_mesh(model: int = 1, group=None) -> Mesh:
     """The (world / model, model) mesh with each `model` group inside one
     host: the host boundary rides the outer `data` axis (independent

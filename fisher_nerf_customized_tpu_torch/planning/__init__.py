@@ -1,0 +1,3 @@
+from .planner import AstarPlanner, LocalizationError, NoFrontierError
+
+__all__ = ["AstarPlanner", "LocalizationError", "NoFrontierError"]

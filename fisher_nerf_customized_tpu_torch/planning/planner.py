@@ -36,11 +36,11 @@ import os
 import numpy as np
 import torch
 
-from ..ops.camera import Camera
+from ..ops.camera import Camera, camera_from_intrinsics
 from ..utils import raster
 from .candidates import (generate_candidates, generate_candidates_object,
                          generate_random_gaussians, sample_random_candidates)
-from .astar import AstarSearch
+from .astar import AstarSearch, check_collision_free
 from .occupancy import occ_update
 from .sweep import SweepSearch
 
@@ -58,12 +58,6 @@ def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
-
-
-def camera_from_intrinsics(K, width: int, height: int) -> Camera:
-    K = np.asarray(K)
-    return Camera(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
-                  cy=float(K[1, 2]), width=int(width), height=int(height))
 
 
 class AstarPlanner:
@@ -530,6 +524,11 @@ class AstarPlanner:
             if goal is None:
                 return np.array([])
         return self._search.plan(goal, shortcut=self.shortcut_path)
+
+    def CheckCollision(self, pt1, pt2, occ_map) -> bool:
+        """True if the 7-px-wide line between two [x, z] cells stays free
+        of occ_map's nonzero cells (planning/astar.py)."""
+        return check_collision_free(pt1, pt2, occ_map)
 
     # -- global planning ----------------------------------------------------
     def pose_eval(self, poses, *args):

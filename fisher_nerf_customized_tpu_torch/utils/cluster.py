@@ -7,6 +7,11 @@ test_navigation enters it around the episode) and the handlers found
 there are put back when it exits.  The JAX manager installs them when it
 is built and keeps them for the life of the process.  `requeue` calls
 `scontrol requeue $SLURM_JOB_ID` under SLURM and exits.
+
+In a process group each rank has its own manager and its own flag (a
+signal reaches one process; the time budget reads each rank's clock).
+The episode loop agrees the flag over the group before it acts on it
+(engine/driver.py), and only rank 0 calls scontrol.
 """
 from __future__ import annotations
 
@@ -54,9 +59,12 @@ class ClusterStateManager:
         return (self.time_to_run is not None
                 and time.time() - self._start > self.time_to_run)
 
-    def requeue(self, exit_code: int = 0):
+    def requeue(self, exit_code: int = 0, call_scontrol: bool = True):
+        """`scontrol requeue $SLURM_JOB_ID` under SLURM (unless
+        call_scontrol is False: the ranks of a group other than 0), then
+        sys.exit(exit_code)."""
         job_id = os.environ.get("SLURM_JOB_ID")
-        if job_id:
+        if job_id and call_scontrol:
             subprocess.call(["scontrol", "requeue", job_id])
         sys.exit(exit_code)
 

@@ -78,6 +78,63 @@ def invert_se3(M: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def pose_matrix(rot_q: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """(..., 4) wxyz quaternion and (..., 3) translation -> (..., 4, 4)
+    homogeneous matrix."""
+    R = quat_to_rotmat(rot_q)
+    M = R.new_zeros(R.shape[:-2] + (4, 4))
+    M[..., :3, :3] = R
+    M[..., :3, 3] = trans
+    M[..., 3, 3] = 1.0
+    return M
+
+
+def transform_points(M: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply the (..., 4, 4) rigid transform M to (..., N, 3) points.  Each
+    entry is written out as ((M_i0 x + M_i1 y) + M_i2 z) + M_i3: no
+    matmul, so no TF32 and the same order of summation on every
+    device."""
+    x, y, z = pts.unbind(-1)
+    return torch.stack([((M[..., i, 0, None] * x + M[..., i, 1, None] * y)
+                         + M[..., i, 2, None] * z) + M[..., i, 3, None]
+                        for i in range(3)], dim=-1)
+
+
+def _mat3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for 3x3 matrices, written out (see transform_points)."""
+    return (A[:, 0:1] * B[0:1, :] + A[:, 1:2] * B[1:2, :]) \
+        + A[:, 2:3] * B[2:3, :]
+
+
+def compute_next_campos_torch(cam_H: torch.Tensor, action_id,
+                              forward_step_size: float = 0.065,
+                              turn_angle: float = 10.0) -> torch.Tensor:
+    """compute_next_campos on a (4, 4) tensor, on its device: the JAX
+    package's compute_next_campos_jax.  action_id is an int or an int
+    tensor; an id other than 1, 2 or 3 leaves the pose unchanged.  No
+    host round trip, so a rollout can stay on the card."""
+    dev, dt = cam_H.device, cam_H.dtype
+    a = torch.as_tensor(action_id, device=dev)
+    ang = torch.deg2rad(torch.tensor(float(turn_angle), dtype=dt,
+                                     device=dev))
+    c, s = torch.cos(ang), torch.sin(ang)
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    R, t = cam_H[:3, :3], cam_H[:3, 3]
+    fwd = t + R[:, 2] * forward_step_size
+    r_left = torch.stack([torch.stack([c, zero, -s]),
+                          torch.stack([zero, one, zero]),
+                          torch.stack([s, zero, c])])
+    r_right = torch.stack([torch.stack([c, zero, s]),
+                           torch.stack([zero, one, zero]),
+                           torch.stack([-s, zero, c])])
+    rot = torch.where(a == 2, _mat3(R, r_left),
+                      torch.where(a == 3, _mat3(R, r_right), R))
+    out = cam_H.clone()
+    out[:3, 3] = torch.where(a == 1, fwd, t)
+    out[:3, :3] = rot
+    return out
+
+
 # Discrete agent kinematics (host-side numpy).  Action ids: 1 = forward
 # (+z in the camera frame), 2 = turn left, 3 = turn right.
 def compute_next_campos(cam_H: np.ndarray, action_id: int,

@@ -1,32 +1,35 @@
 """Metrics channels of an episode, the JAX package's
 utils/logging_utils.py: MetricsLogger, a JSONL stream of per-step
-metrics (tensorboardX too when it is installed), and StepTimer, the
-per-phase wall-clock accounting.  StepTimer reads the host clock: a
-phase that only launches device work is charged its launch time, and the
-next phase that waits on the device is charged the wait."""
+metrics (tensorboardX and wandb too when they are installed), StepTimer,
+the per-phase wall-clock accounting, and profile_trace, a torch.profiler
+trace around a block.  StepTimer reads the host clock: a phase that only
+launches device work is charged its launch time, and the next phase that
+waits on the device is charged the wait."""
 from __future__ import annotations
 
 import json
+import logging
 import os
 import time
 from collections import defaultdict
 from contextlib import contextmanager
 
+logger = logging.getLogger(__name__)
+
 
 class MetricsLogger:
     """Appends one JSON record per log call to
     <log_dir>/<run_name>_metrics.jsonl: {"step", "t" (unix seconds), the
-    metrics as floats}; mirrors them to tensorboardX when it imports.
-    wandb is not ported (it needs the network).  With enabled=False (a
-    rank other than 0 of a process group) it writes nothing."""
+    metrics as floats}; mirrors them to tensorboardX when it imports, and
+    with use_wandb to a wandb run (project "active_mapping", named
+    run_name).  A wandb that fails to import or to start logs a warning
+    and the logger carries on without it, as the JAX package's does.
+    With enabled=False (a rank other than 0 of a process group) it writes
+    nothing and starts no wandb run."""
 
     def __init__(self, log_dir: str, run_name: str = "run",
                  use_wandb: bool = False, enabled: bool = True):
-        if use_wandb:
-            raise NotImplementedError(
-                "wandb logging (use_wandb) is not ported to the PyTorch "
-                "package (ROADMAP.md, queue 1)")
-        self._f = self._tb = None
+        self._f = self._tb = self._wandb = None
         if not enabled:
             return
         os.makedirs(log_dir, exist_ok=True)
@@ -38,6 +41,13 @@ class MetricsLogger:
             self._tb = SummaryWriter(log_dir)
         except Exception:
             pass
+        if use_wandb:
+            try:
+                import wandb
+                self._wandb = wandb.init(project="active_mapping",
+                                         name=run_name)
+            except Exception:
+                logger.warning("wandb requested but unavailable")
 
     def log(self, step: int, **metrics):
         if self._f is None:
@@ -49,6 +59,8 @@ class MetricsLogger:
         if self._tb is not None:
             for k, v in metrics.items():
                 self._tb.add_scalar(k, float(v), step)
+        if self._wandb is not None:
+            self._wandb.log(metrics, step=step)
 
     def close(self):
         if self._f is not None:
@@ -87,3 +99,28 @@ class StepTimer:
                         mean_ms=round(self.totals[k] / max(self.counts[k], 1)
                                       * 1000, 2))
                 for k in self.totals}
+
+
+@contextmanager
+def profile_trace(log_dir: str | None):
+    """A torch.profiler trace of the block (the host's activity, and the
+    card's where CUDA is available), written as a Chrome trace
+    <log_dir>/trace_<pid>_<time>.json when the block ends, also when it
+    raises; a no-op for a falsy log_dir.  View it in chrome://tracing or
+    Perfetto."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            yield
+    finally:
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -3,9 +3,16 @@ optax) or anything of the JAX package (not even its JAX-free modules),
 nor OpenCV (cv2), PIL or matplotlib: the port runs on a machine without
 JAX and without them (utils/raster.py has the port's own form of each
 cv2 call and its PNG reader and writer).  The optional packages of a
-few paths (habitat, habitat_sim, open3d, trimesh) are imported only by
-the module that gates them, inside the function that needs them."""
+few paths (habitat, habitat_sim, open3d, trimesh, wandb) are imported
+only by the module that gates them, inside the function that needs them.
+
+Each subpackage imports first in a fresh interpreter (no import cycle),
+exports the JAX package's `__all__` name for name, imports no JAX and
+builds no kernel."""
+import ast
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -22,7 +29,8 @@ FORBIDDEN = re.compile(
 OPTIONAL = {"habitat": "envs/habitat_adapter.py",
             "habitat_sim": "envs/habitat_adapter.py",
             "open3d": "tools/extract_3d_model.py",
-            "trimesh": "tools/evaluation.py"}
+            "trimesh": "tools/evaluation.py",
+            "wandb": "utils/logging_utils.py"}
 # the episode slice's modules: they must exist (test_no_jax_imports checks
 # them with every other file of the port)
 EPISODE_MODULES = [
@@ -115,3 +123,60 @@ def test_forbidden_pattern_catches_jax_imports():
             "import flaxen"]
     assert all(FORBIDDEN.search(s) for s in bad)
     assert not any(FORBIDDEN.search(s) for s in good)
+
+
+SUBPACKAGES = ["", "config", "ops", "planning", "engine", "envs", "models",
+               "parallel", "utils", "tools"]
+
+
+def _jax_all(sub: str) -> list:
+    """The JAX package's __all__ of a subpackage, read from its source
+    (the JAX package is not imported); none where it has no such
+    subpackage (tools/)."""
+    path = ROOT / "fisher_nerf_customized_tpu" / sub / "__init__.py"
+    if not path.exists():
+        return []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    return []
+
+
+def _build_dir_state():
+    build = ROOT / "fisher_nerf_customized_tpu_torch" / "_build"
+    return sorted((str(p), p.stat().st_mtime_ns) for p in build.rglob("*")) \
+        if build.exists() else None
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES, ids=lambda s: s or "top")
+def test_subpackage_imports_first_and_exports(sub):
+    names = _jax_all(sub)
+    mod = "fisher_nerf_customized_tpu_torch" + (f".{sub}" if sub else "")
+    before = _build_dir_state()
+    code = "\n".join([
+        "import sys",
+        # any import of JAX, cv2 or the JAX package fails
+        "for name in ('jax', 'jaxlib', 'cv2', 'fisher_nerf_customized_tpu'):",
+        "    sys.modules[name] = None",
+        f"import {mod} as m",
+        f"assert list(getattr(m, '__all__', [])) == {names!r}, m.__all__",
+        f"from {mod} import {', '.join(names) or '__name__'}",
+        "print(getattr(m, '__version__', ''))"])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    if not sub:
+        assert out.stdout.strip() == "0.1.0"
+    assert _build_dir_state() == before
+
+
+def test_jax_exports_are_listed():
+    """The JAX package's subpackages that export names are the ones
+    checked above."""
+    exporting = sorted(p.parent.name for p in
+                       (ROOT / "fisher_nerf_customized_tpu").glob(
+                           "*/__init__.py") if _jax_all(p.parent.name))
+    assert exporting == ["config", "engine", "envs", "models", "ops",
+                         "parallel", "planning"]
+    assert set(exporting) < set(SUBPACKAGES)

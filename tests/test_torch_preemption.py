@@ -14,10 +14,20 @@ on they agree to 1e-5, since the checkpoint holds the keyframes in
 float16 (the JAX package's format) and the event's window maps from
 them.  The handlers are armed only while test_navigation runs: every
 test checks that the process's handlers are the ones it started with.
+
+In a process group the ranks agree the exit flag at every step (one
+all-reduce MAX).  Two gloo ranks, spawned once for the module (the
+`ranks` fixture: a 300 s wall limit and a 60 s collective timeout, so
+that ranks that part fail rather than hang), run the episode at
+mesh_axes.data = 2: uninterrupted; with a SIGUSR1 sent to rank 1 only;
+resumed from that checkpoint; and with a time budget that runs out on
+rank 1 only.  scontrol is a stub on PATH that records who called it.
+This module imports no JAX at its top: the spawned ranks import it.
 """
 import os
 import shutil
 import signal
+import stat
 
 import numpy as np
 import pytest
@@ -29,8 +39,6 @@ from fisher_nerf_customized_tpu_torch.envs.fake_sim import BoxScene, FakeSim
 from fisher_nerf_customized_tpu_torch.ops.camera import Camera
 from fisher_nerf_customized_tpu_torch.utils.cluster import (
     SIGNALS, ClusterStateManager, get_cluster_manager)
-
-from test_engine import IMG, episode_cfg
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -91,13 +99,20 @@ def test_requeue_exits(monkeypatch):
 
 def make(workdir, steps, tracked, manager=None, eval_dir=None):
     """(mapper, scene, actions list) of a port episode."""
-    cfg = tcfg()
-    cfg.merge_from_other(episode_cfg(workdir, steps=steps).to_dict())
+    from test_engine import episode_cfg
+    cfg_dict = episode_cfg(workdir, steps=steps).to_dict()
     if tracked:
-        cfg.tracking.use_gt_poses = False
-        cfg.tracking.num_iters = 4
-    cam = Camera(fx=float(IMG), fy=float(IMG), cx=IMG / 2, cy=IMG / 2,
-                 width=IMG, height=IMG)
+        cfg_dict["tracking"].update(use_gt_poses=False, num_iters=4)
+    return make_from(cfg_dict, manager, eval_dir)
+
+
+def make_from(cfg_dict, manager=None, eval_dir=None):
+    """make() from the config as a dict (a spawned rank imports no JAX)."""
+    cfg = tcfg()
+    cfg.merge_from_other(cfg_dict)
+    img = int(cfg.SLAM.Dataset.Calibration.width)
+    cam = Camera(fx=float(img), fy=float(img), cx=img / 2, cy=img / 2,
+                 width=img, height=img)
     scene = BoxScene(room_lo=(-3, 0, -3), room_hi=(3, 2.5, 3),
                      obstacles=[((1.0, 0.0, 1.0), (1.8, 1.8, 1.8))])
     sim = FakeSim(scene, cam, forward_step=0.15, turn_angle=30.0, seed=3,
@@ -174,3 +189,146 @@ def test_signalled_episode_resumes_the_same(tmp_path, tracked, steps, sig_t):
     t_map = next(t for t in range(sig_t, steps) if (t + 2) % map_every == 0)
     np.testing.assert_array_equal(got[:t_map + 2], ref[:t_map + 2])
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def test_requeue_without_scontrol(monkeypatch, tmp_path):
+    """A rank other than 0 exits without calling scontrol."""
+    log = _scontrol_stub(tmp_path, monkeypatch)
+    monkeypatch.setenv("SLURM_JOB_ID", "4242")
+    monkeypatch.setenv("TEST_RANK", "0")
+    with pytest.raises(SystemExit) as exc:
+        ClusterStateManager().requeue(5, call_scontrol=False)
+    assert exc.value.code == 5 and not log.exists()
+    with pytest.raises(SystemExit):
+        ClusterStateManager().requeue(5)
+    assert log.read_text().split() == ["0", "requeue", "4242"]
+
+
+def test_single_process_poll_makes_no_collective(tmp_path, monkeypatch):
+    """Without a process group the poll is the manager's flag alone."""
+    import torch.distributed as dist
+
+    def refuse(*_a, **_kw):
+        raise AssertionError("a collective in one process")
+
+    monkeypatch.setattr(dist, "all_reduce", refuse)
+    monkeypatch.setattr(dist, "barrier", refuse)
+    mapper, _scene, _actions = make(tmp_path, 8, tracked=False,
+                                    manager=RaisingManager(time_to_run=-1.0))
+    with pytest.raises(Requeued):
+        mapper.test_navigation(n_eval_poses=0)
+    assert "exit_poll" not in mapper.timer.totals
+
+
+# ---- two ranks (fault w) -----------------------------------------------------
+
+WORLD = 2
+STEPS2 = 14
+SIG_T2 = 10
+
+
+def _scontrol_stub(tmp_path, monkeypatch=None):
+    """An `scontrol` on PATH that appends "$TEST_RANK $@" to a log; the
+    log's path."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir(exist_ok=True)
+    log = tmp_path / "scontrol.log"
+    stub = bin_dir / "scontrol"
+    stub.write_text(f'#!/bin/sh\necho "$TEST_RANK $@" >> "{log}"\n')
+    stub.chmod(stub.stat().st_mode | stat.S_IEXEC)
+    if monkeypatch is not None:
+        monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}"
+                           f"{os.environ['PATH']}")
+    return log
+
+
+def _rank_episodes(rank, world, _port, cfgs, bin_dir):
+    """One rank: the uninterrupted episode, the episode with a SIGUSR1 to
+    rank 1 at the end of step SIG_T2 - 1, its resume, and the episode
+    whose time budget runs out on rank 1 only.  Returns numpy-free
+    results."""
+    import torch.distributed as dist
+    os.environ.update(SLURM_JOB_ID="4242", TEST_RANK=str(rank),
+                      PATH=f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
+    out = {}
+    full, _scene, act = make_from(cfgs["full"])
+    res = full.test_navigation(n_eval_poses=0)
+    out["full"] = dict(actions=act, steps=res["steps"],
+                       polls=res["timing"]["exit_poll"]["count"])
+
+    def on_step(t, _obs):
+        if rank == 1 and t == SIG_T2 - 1:
+            os.kill(os.getpid(), signal.SIGUSR1)
+
+    for name, cm, kw in (
+            ("cut", ClusterStateManager(), dict(on_step=on_step)),
+            ("budget", ClusterStateManager(
+                time_to_run=-1.0 if rank == 1 else None), {})):
+        mapper, _scene, act = make_from(cfgs[name], manager=cm)
+        try:
+            mapper.test_navigation(n_eval_poses=0, **kw)
+            code = None
+        except SystemExit as exc:
+            code = exc.code
+        out[name] = dict(actions=act, exit_code=code,
+                         polls=mapper.timer.counts["exit_poll"])
+    dist.barrier()
+    res_m, _scene, act = make_from(cfgs["cut"])
+    res_m.resume(os.path.join(res_m.eval_dir, f"params{SIG_T2 - 1}.npz"))
+    dist.barrier()              # every rank has read the checkpoint
+    res = res_m.test_navigation(n_eval_poses=0)
+    out["resumed"] = dict(actions=act, steps=res["steps"],
+                          n_active=res_m.slam.n_active)
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    from test_engine import episode_cfg
+    from fisher_nerf_customized_tpu_torch.parallel.launch import run_ranks
+    tmp = tmp_path_factory.mktemp("preempt2")
+    cfgs = {}
+    for name in ("full", "cut", "budget"):
+        cfg = episode_cfg(tmp / name, steps=STEPS2)
+        cfg.tpu.mesh_axes.data = WORLD
+        cfgs[name] = cfg.to_dict()
+    log = _scontrol_stub(tmp)
+    out = run_ranks(_rank_episodes, WORLD, args=(cfgs, str(tmp / "bin")),
+                    timeout_s=300, collective_timeout_s=60, threads=1)
+    return out, tmp, log.read_text().splitlines() if log.exists() else []
+
+
+def test_ranks_stop_together_on_one_ranks_signal(ranks):
+    out, tmp, scontrol = ranks
+    for r in out:
+        assert r["full"]["steps"] == STEPS2
+        assert r["full"]["polls"] == STEPS2      # one agreed poll a step
+        assert r["cut"]["exit_code"] == 0
+        assert r["cut"]["actions"] == r["full"]["actions"][:SIG_T2]
+        assert r["cut"]["polls"] == SIG_T2 + 1
+    assert out[0]["full"]["actions"] == out[1]["full"]["actions"]
+    ck = SIG_T2 - 1
+    eval_dir = tmp / "cut" / "ep"
+    with np.load(eval_dir / "episode_state.npz") as ep:
+        assert int(ep["t"]) == ck and int(ep["resume_t"]) == SIG_T2
+    assert (eval_dir / f"params{ck}.npz").exists()
+    # scontrol ran once for the signal and once for the budget, by rank 0
+    assert scontrol == ["0 requeue 4242", "0 requeue 4242"]
+
+
+def test_time_budget_of_one_rank_stops_both(ranks):
+    out, tmp, _scontrol = ranks
+    for r in out:
+        assert r["budget"]["exit_code"] == 0
+        assert r["budget"]["actions"] == [] and r["budget"]["polls"] == 1
+    with np.load(tmp / "budget" / "ep" / "episode_state.npz") as ep:
+        assert int(ep["t"]) == 0 and int(ep["resume_t"]) == 0
+
+
+def test_two_rank_resume_takes_the_uninterrupted_actions(ranks):
+    out, _tmp, _scontrol = ranks
+    for r in out:
+        assert r["resumed"]["steps"] == STEPS2
+        assert (r["cut"]["actions"] + r["resumed"]["actions"]
+                == r["full"]["actions"])
+    assert out[0]["resumed"]["n_active"] == out[1]["resumed"]["n_active"]
