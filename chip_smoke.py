@@ -263,6 +263,21 @@ before it) and the seconds since the start (at_s):
                    mark_visible there equal to the CPU's to the bit.
                    Prints the metrics, the wall times, ms per replayed
                    frame, fisher_diag's device ms and the visible count;
+  video            the port's write_trajectory_video writes the 59 K1
+                   renders that eval_nvs made in replay (tensors on the
+                   card, 256x256) as an mp4 (utils/video.py: H.264 with
+                   every macroblock I_PCM, in ISO BMFF; no cv2 and no
+                   ffmpeg on this machine); a reader of this script's own
+                   (read_pcm_mp4: the boxes walked, the emulation-
+                   prevention bytes removed, the PCM macroblocks
+                   unpacked) reads it back.  Fails unless the frame count,
+                   the tkhd, avc1 and SPS sizes, the mdhd timescale (the
+                   fps) and duration, and the stsz and mdat totals agree,
+                   and every Y, Cb and Cr plane equals the writer's own
+                   colour conversion (yuv420_planes) of its frame byte
+                   for byte.  Prints the frames, the file's bytes, the
+                   write's ms (from the card's tensors) and the ms to
+                   write 100 host frames at 256x256;
   probe            the slice's map (60 frames, 6 mapping events with Adam;
                    with --kernels-only the same map is built here); the
                    kernel phases below run on it;
@@ -390,6 +405,7 @@ import argparse
 import functools
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -428,6 +444,7 @@ K3_FLOPS_PER_LIVE_PAIR = {11: 2 * FLOPS_PER_PAIR + 2 * 5 + 31,     # 69
 ACTIONS = ([2] * 36 + [1] * 24 + [3] * 9 + [1] * 24 + [2] * 18 + [1] * 9)[:59]
 EXTRA_ACTIONS = [2] * 10        # after the slice: one more mapping event
 N_PROBE_FRAMES = 60
+VIDEO_FPS = 10
 SCENE = "fake_apartment_0"
 SCENE_SEED = zlib.crc32(SCENE.encode()) % (2 ** 31)
 EPISODE_STEPS = 100
@@ -956,7 +973,7 @@ def count_cut_ties(mapper):
 
 def check_replay(cfg, dev, frames, slice_slam):
     """The replay phase (see the module docstring): (row, launches by
-    kernel in the phase)."""
+    kernel in the phase, eval_nvs's renders on the card)."""
     import torch
     from fisher_nerf_customized_tpu_torch.engine.eval import eval_nvs
     from fisher_nerf_customized_tpu_torch.envs import ReplaySim
@@ -987,10 +1004,21 @@ def check_replay(cfg, dev, frames, slice_slam):
     map_launches = read_launches()
     # eval_nvs over every replayed frame
     zero_launches()
+    renders = []        # eval_nvs's K1 renders, for the video phase
+    render_at_pose = slam.render_at_pose
+
+    def capture(c2w):
+        out = render_at_pose(c2w)
+        renders.append(out["render"])
+        return out
+    slam.render_at_pose = capture
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = eval_nvs(slam, replay, eval_every=1)
-    torch.cuda.synchronize()
+    try:
+        res = eval_nvs(slam, replay, eval_every=1)
+        torch.cuda.synchronize()
+    finally:
+        del slam.render_at_pose
     eval_s = time.perf_counter() - t0
     eval_launches = read_launches()
     keys = ("psnr", "ssim", "depth_l1")
@@ -1101,7 +1129,246 @@ def check_replay(cfg, dev, frames, slice_slam):
                 for k in map_launches}
     del slam, replay, head
     torch.cuda.empty_cache()
-    return row, launches
+    return row, launches, renders
+
+
+def mp4_boxes(data, start=0, end=None):
+    """The ISO BMFF boxes in data[start:end], in order: (kind, payload
+    start, payload end); 64-bit sizes read, a size of 0 runs to the end."""
+    end = len(data) if end is None else end
+    boxes, pos = [], start
+    while pos < end:
+        size, kind = struct.unpack_from(">I4s", data, pos)
+        head = 8
+        if size == 1:
+            size, head = struct.unpack_from(">Q", data, pos + 8)[0], 16
+        elif size == 0:
+            size = end - pos
+        if size < head or pos + size > end:
+            raise ValueError(f"box {kind!r} at {pos}: size {size}")
+        boxes.append((kind.decode("latin-1"), pos + head, pos + size))
+        pos += size
+    return boxes
+
+
+def mp4_box(data, start, end, *kinds):
+    """The payload (start, end) of the box reached by the path `kinds`
+    from data[start:end], one box of each kind on the way."""
+    for kind in kinds:
+        hits = [(s, e) for k, s, e in mp4_boxes(data, start, end)
+                if k == kind]
+        if len(hits) != 1:
+            raise ValueError(f"{len(hits)} {kind!r} boxes")
+        start, end = hits[0]
+    return start, end
+
+
+def unescape(payload):
+    """A NAL unit's RBSP: every 0x03 that follows two zero bytes
+    removed (in an escaped stream each such 0x03 is an emulation-
+    prevention byte)."""
+    d = np.frombuffer(payload, np.uint8)
+    hit = np.flatnonzero((d[2:] == 3) & (d[1:-1] == 0) & (d[:-2] == 0)) + 2
+    return np.delete(d, hit)
+
+
+class BitReader:
+    def __init__(self, rbsp):
+        self.bits = np.unpackbits(np.asarray(rbsp, np.uint8))
+        self.pos = 0
+
+    def u(self, n):
+        v = 0
+        for b in self.bits[self.pos:self.pos + n]:
+            v = 2 * v + int(b)
+        self.pos += n
+        return v
+
+    def ue(self):
+        zeros = 0
+        while self.bits[self.pos + zeros] == 0:
+            zeros += 1
+        self.pos += zeros + 1
+        return (1 << zeros) - 1 + self.u(zeros)
+
+    def se(self):
+        k = self.ue()
+        return (k + 1) // 2 if k % 2 else -(k // 2)
+
+
+def read_pcm_mp4(path):
+    """Read an mp4 of utils/video.py's form (one H.264 track, every
+    picture one IDR I slice of I_PCM macroblocks, one sample a chunk)
+    without a decoder: the sizes and timing from the boxes, the SPS and
+    PPS from avcC, and each picture's (Y, Cb, Cr) planes, padded to
+    whole macroblocks.  Raises ValueError on anything else and on boxes
+    that disagree (the tkhd, avc1 and cropped SPS sizes, the sample
+    table against mdat)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    top = mp4_boxes(data)
+    if top[0][0] != "ftyp" or data[top[0][1]:top[0][1] + 4] != b"isom":
+        raise ValueError(f"not an isom file: {top[0]}")
+    mdat = mp4_box(data, 0, len(data), "mdat")
+    moov = mp4_box(data, 0, len(data), "moov")
+    trak = mp4_box(data, *moov, "trak")
+    s, _ = mp4_box(data, *trak, "tkhd")
+    tk_w, tk_h = struct.unpack_from(">II", data, s + 76)
+    s, _ = mp4_box(data, *trak, "mdia", "mdhd")
+    timescale, duration = struct.unpack_from(">II", data, s + 12)
+    s, _ = mp4_box(data, *trak, "mdia", "hdlr")
+    if data[s + 8:s + 12] != b"vide":
+        raise ValueError("not a video track")
+    stbl = mp4_box(data, *trak, "mdia", "minf", "stbl")
+    s, e = mp4_box(data, *stbl, "stsd")
+    (kind, a, b), = mp4_boxes(data, s + 8, e)
+    if kind != "avc1":
+        raise ValueError(f"sample entry {kind}")
+    av_w, av_h = struct.unpack_from(">HH", data, a + 24)
+    c, _ = mp4_box(data, a + 78, b, "avcC")
+    n_sps = data[c + 5] & 31
+    (sps_len,) = struct.unpack_from(">H", data, c + 6)
+    sps = data[c + 8:c + 8 + sps_len]
+    (pps_len,) = struct.unpack_from(">H", data, c + 9 + sps_len)
+    pps = data[c + 11 + sps_len:c + 11 + sps_len + pps_len]
+    if (data[c] != 1 or data[c + 4] & 3 != 3 or n_sps != 1
+            or data[c + 8 + sps_len] != 1 or data[c + 1:c + 4] != sps[1:4]
+            or sps[0] != 0x67 or pps[0] != 0x68):
+        raise ValueError("avcC")
+    r = BitReader(unescape(sps[1:]))
+    profile, constraints, level = r.u(8), r.u(8), r.u(8)
+    r.ue()
+    log2_frame_num = r.ue() + 4
+    poc_type, _, _ = r.ue(), r.ue(), r.u(1)
+    mb_w, mb_h = r.ue() + 1, r.ue() + 1
+    frame_mbs_only, _, cropping = r.u(1), r.u(1), r.u(1)
+    crop = [r.ue() for _ in range(4)] if cropping else [0, 0, 0, 0]
+    width = 16 * mb_w - 2 * (crop[0] + crop[1])
+    height = 16 * mb_h - 2 * (crop[2] + crop[3])
+    if profile != 66 or poc_type != 2 or not frame_mbs_only:
+        raise ValueError(f"SPS: profile {profile}, poc type {poc_type}")
+    if (tk_w, tk_h) != (width << 16, height << 16) or \
+            (av_w, av_h) != (width, height):
+        raise ValueError(f"sizes: tkhd {tk_w / 65536}x{tk_h / 65536}, "
+                         f"avc1 {av_w}x{av_h}, SPS {width}x{height}")
+    r = BitReader(unescape(pps[1:]))
+    r.ue(), r.ue()
+    if r.u(1):
+        raise ValueError("CABAC")
+    r.u(1), r.ue(), r.ue(), r.ue(), r.u(1), r.u(2), r.se(), r.se(), r.se()
+    deblocking_control = r.u(1)
+    s, _ = mp4_box(data, *stbl, "stts")
+    (n_stts,) = struct.unpack_from(">I", data, s + 4)
+    stts = [struct.unpack_from(">II", data, s + 8 + 8 * i)
+            for i in range(n_stts)]
+    s, _ = mp4_box(data, *stbl, "stsc")
+    stsc = struct.unpack_from(">IIII", data, s + 4)
+    s, _ = mp4_box(data, *stbl, "stsz")
+    _, n = struct.unpack_from(">II", data, s + 4)
+    sizes = np.frombuffer(data, ">u4", n, s + 12).astype(np.int64)
+    kinds = [k for k, _, _ in mp4_boxes(data, *stbl)]
+    wide = "co64" in kinds
+    s, _ = mp4_box(data, *stbl, "co64" if wide else "stco")
+    offsets = np.frombuffer(data, ">u8" if wide else ">u4",
+                            struct.unpack_from(">I", data, s + 4)[0],
+                            s + 8).astype(np.int64)
+    if (n and stsc != (1, 1, 1, 1)) or len(offsets) != n or \
+            sum(c for c, _ in stts) != n:
+        raise ValueError(f"sample table: stsc {stsc}, {len(offsets)} "
+                         f"offsets, stts {stts}, {n} sizes")
+    if n and (offsets[0] != mdat[0] or int(sizes.sum()) != mdat[1] - mdat[0]
+              or (offsets[1:] != offsets[:-1] + sizes[:-1]).any()):
+        raise ValueError("the samples do not tile mdat")
+    frames, idr_ids = [], []
+    for off, size in zip(offsets, sizes):
+        (length,) = struct.unpack_from(">I", data, off)
+        nal = data[off + 4:off + size]
+        if length != size - 4 or nal[0] != 0x65:
+            raise ValueError(f"sample at {off}: length {length}, NAL "
+                             f"header {nal[0]:#x}")
+        rbsp = unescape(nal[1:])
+        r = BitReader(rbsp[:64])
+        first_mb, slice_type, _ = r.ue(), r.ue(), r.ue()
+        r.u(log2_frame_num)
+        idr_ids.append(r.ue())
+        r.u(2)                          # dec_ref_pic_marking
+        r.se()
+        if deblocking_control and r.ue() != 1:
+            r.se(), r.se()
+        if first_mb != 0 or slice_type not in (2, 7) or r.ue() != 25:
+            raise ValueError("not an I slice of I_PCM macroblocks")
+        body = rbsp[-(-r.pos // 8):]
+        n_mb = mb_w * mb_h
+        if body.size != 384 + (n_mb - 1) * 386 + 1 or body[-1] != 0x80:
+            raise ValueError(f"slice body of {body.size} bytes")
+        rest = body[384:-1].reshape(n_mb - 1, 386)
+        if (rest[:, 0] != 0x0D).any() or (rest[:, 1] != 0).any():
+            raise ValueError("a macroblock is not I_PCM")
+        mbs = np.concatenate([body[None, :384], rest[:, 2:]])
+
+        def plane(lo, hi, side):
+            return mbs[:, lo:hi].reshape(mb_h, mb_w, side, side).transpose(
+                0, 2, 1, 3).reshape(mb_h * side, mb_w * side)
+        frames.append((plane(0, 256, 16), plane(256, 320, 8),
+                       plane(320, 384, 8)))
+    return dict(width=width, height=height, timescale=timescale,
+                duration=duration, stts=stts, sizes=sizes.tolist(),
+                offsets=offsets.tolist(), wide_offsets=wide,
+                mdat=mdat, profile=profile, constraints=constraints,
+                level=level, idr_pic_ids=idr_ids, frames=frames,
+                n_bytes=len(data))
+
+
+def check_video(renders, out_dir):
+    """The video phase (see the module docstring)."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.engine.visualization import (
+        write_trajectory_video)
+    from fisher_nerf_customized_tpu_torch.utils.video import (even_size,
+                                                              yuv420_planes)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "replay_renders.mp4")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    write_trajectory_video(renders, path, fps=VIDEO_FPS)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    got = read_pcm_mp4(path)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    h, w = even_size(*renders[0].shape[:2])
+    n = len(renders)
+    if (len(got["frames"]), len(got["sizes"]), got["duration"]) != (n, n, n) \
+            or (got["height"], got["width"]) != (h, w) \
+            or got["timescale"] != VIDEO_FPS or got["stts"] != [(n, 1)]:
+        raise AssertionError(f"video: {n} frames of {h}x{w} at {VIDEO_FPS} "
+                             f"fps written, read {len(got['frames'])} "
+                             f"({got['duration']} ticks, stts {got['stts']}) "
+                             f"of {got['height']}x{got['width']} at "
+                             f"{got['timescale']}")
+    host = [np.clip(r.detach().cpu().numpy() * 255, 0, 255).astype(np.uint8)
+            for r in renders]
+    for i, img in enumerate(host):
+        for name, a, b in zip(("Y", "Cb", "Cr"), got["frames"][i],
+                              yuv420_planes(img[:h, :w])):
+            if not np.array_equal(a, b):
+                raise AssertionError(
+                    f"video: frame {i} {name} differs from the writer's "
+                    f"conversion in {int((a != b).sum())} samples")
+    if got["idr_pic_ids"] != [i % 2 for i in range(n)]:
+        raise AssertionError(f"video: idr_pic_id {got['idr_pic_ids']}")
+    hundred = (host * (-(-100 // n)))[:100]
+    path_100 = os.path.join(out_dir, "host_100.mp4")
+    t0 = time.perf_counter()
+    write_trajectory_video(hundred, path_100, fps=VIDEO_FPS)
+    write_100_ms = (time.perf_counter() - t0) * 1e3
+    if read_pcm_mp4(path_100)["duration"] != 100:
+        raise AssertionError("video: the 100-frame file")
+    n_bytes = os.path.getsize(path)
+    return dict(frames=n, height=h, width=w, bytes=n_bytes,
+                bytes_per_pixel=n_bytes / (n * h * w), write_ms=write_ms,
+                read_ms=read_ms, level=got["level"],
+                write_100_frames_ms=write_100_ms,
+                bytes_100_frames=os.path.getsize(path_100))
 
 
 def small_episode(device):
@@ -4320,10 +4587,16 @@ def main(argv=None):
 
         # ---- replay: the slice's frames through ReplaySim, eval_nvs and
         # the one-pose Fisher
-        report["replay"], replay_launches = check_replay(cfg, dev,
-                                                         slice_frames, slam)
+        report["replay"], replay_launches, renders = check_replay(
+            cfg, dev, slice_frames, slam)
         del slice_frames
         phase("replay", **fmt(report["replay"]))
+
+        # ---- video: the replay's K1 renders through write_trajectory_video
+        report["video"] = check_video(
+            renders, os.path.join(HERE, "experiments", "chip_smoke"))
+        del renders
+        phase("video", **fmt(report["video"]))
 
     t0 = time.perf_counter()
     if opts.kernels_only:

@@ -11,17 +11,21 @@ candidate scores.  The drawing is cv2's without cv2 (utils/raster.py:
 fill_poly, draw_lines, fill_circle, dilate3), and the PNGs are written
 by raster.write_png as RGB, the pixels the JAX package's
 cv2.imwrite(img[..., ::-1]) stores.  state_dict/load_state_dict carry
-the mask and the cells through a checkpoint.  write_trajectory_video is
-not ported (ROADMAP.md).
+the mask and the cells through a checkpoint.  write_trajectory_video
+writes an episode's frames as an mp4 without cv2: utils/video.py's H.264
+I_PCM stream (every macroblock raw samples) in ISO BMFF, about 1.5 bytes
+a pixel.
 """
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 
 from ..utils.raster import (dilate3, draw_lines, fill_circle, fill_poly,
                             write_png)
+from ..utils.video import write_mp4
 
 
 class MapVisualizer:
@@ -102,6 +106,32 @@ class MapVisualizer:
         self.traj = [tuple(p) for p in np.asarray(d["traj"]).reshape(-1, 2)]
         self.obj_traj = [tuple(p) for p in
                          np.asarray(d["obj_traj"]).reshape(-1, 2)]
+
+
+def write_trajectory_video(frames: list, path: str, fps: int = 10):
+    """Episode RGB frames (H, W, 3) -> an mp4 of `fps` frames a second, the
+    frames the JAX package's cv2.VideoWriter(mp4v) file holds: a frame
+    that is not uint8 becomes np.clip(img * 255, 0, 255).astype(uint8), a
+    tensor comes to the host first, a frame whose shape is not the first
+    frame's (H, W) with 3 channels is skipped with a warning, and odd
+    sides are floored to even.  The stream is utils/video.py's H.264
+    I_PCM: lossless up to the 4:2:0 limited-range colour conversion."""
+    if not frames:
+        return
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    h, w = frames[0].shape[:2]
+    keep = []
+    for i, f in enumerate(frames):
+        img = (f.detach().cpu().numpy() if hasattr(f, "detach")
+               else np.asarray(f))
+        if img.dtype != np.uint8:
+            img = np.clip(img * 255, 0, 255).astype(np.uint8)
+        if img.shape != (h, w, 3):
+            warnings.warn(f"write_trajectory_video: frame {i} of shape "
+                          f"{img.shape} skipped (the video is {h}x{w}x3)")
+            continue
+        keep.append(img)
+    write_mp4(path, keep, (h, w), fps)
 
 
 def save_occ_map_png(occ_map, path: str, candidates=None, scores=None,

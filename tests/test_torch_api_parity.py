@@ -102,12 +102,7 @@ RENAMED = {
 }
 
 # (JAX module, JAX name) -> what it waits for
-BLOCKED = {
-    ("engine/visualization.py", "write_trajectory_video"):
-        "it writes an mp4 through cv2.VideoWriter; the port may not import "
-        "cv2 (tests/test_torch_imports.py) and no other mp4 encoder "
-        "(imageio-ffmpeg, PyAV, an ffmpeg binary) is installed",
-}
+BLOCKED: dict = {}
 
 
 def public_names(path: Path) -> set:
@@ -164,9 +159,9 @@ def test_renamed_entry_is_needed_and_its_counterpart_exists(key):
     assert reason
 
 
-def test_only_write_trajectory_video_is_blocked():
-    assert list(BLOCKED) == [("engine/visualization.py",
-                              "write_trajectory_video")]
-    for (module, name), reason in BLOCKED.items():
-        assert name in JAX[module] and not _port_has(module, name)
-        assert "encoder" in reason
+def test_nothing_is_blocked():
+    """The last blocked name, write_trajectory_video, has its counterpart
+    under its own name (utils/video.py's mp4 writer, no cv2)."""
+    assert BLOCKED == {}
+    assert _port_has("engine/visualization.py", "write_trajectory_video")
+    assert "write_trajectory_video" in JAX["engine/visualization.py"]

@@ -1,8 +1,9 @@
 """The PyTorch port and chip_smoke.py must not import JAX (nor flax or
 optax) or anything of the JAX package (not even its JAX-free modules),
-nor OpenCV (cv2), PIL or matplotlib: the port runs on a machine without
-JAX and without them (utils/raster.py has the port's own form of each
-cv2 call and its PNG reader and writer).  The optional packages of a
+nor OpenCV (cv2), PIL, matplotlib, imageio or PyAV (av), nor run
+ffmpeg: the port runs on a machine without JAX and without them
+(utils/raster.py has the port's own form of each cv2 call and its PNG
+reader and writer, utils/video.py its mp4 writer).  The optional packages of a
 few paths (habitat, habitat_sim, open3d, trimesh, wandb) are imported
 only by the module that gates them, inside the function that needs them.
 
@@ -22,7 +23,8 @@ FILES = sorted((ROOT / "fisher_nerf_customized_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|cv2\b|flax\b|optax\b"
-    r"|PIL\b|matplotlib\b|fisher_nerf_customized_tpu\b(?!_torch))",
+    r"|PIL\b|matplotlib\b|imageio\b|av\b"
+    r"|fisher_nerf_customized_tpu\b(?!_torch))",
     re.MULTILINE)
 # each optional package and the one module that may import it (indented:
 # inside a function, never at import time)
@@ -74,6 +76,10 @@ HABITAT_TOOLS_MODULES = [
 PARALLEL_MODULES = [
     "parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
     "parallel/sharding.py", "parallel/launch.py"]
+# the trajectory video's modules
+VIDEO_MODULES = ["utils/video.py", "engine/visualization.py"]
+# a program named in a string: how a subprocess would run ffmpeg
+FFMPEG_CALL = re.compile(r"[\"']ffmpeg(?:\.exe)?[\"']", re.IGNORECASE)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -83,6 +89,7 @@ def test_no_jax_imports(path):
     assert not hits, f"{path.name} imports {hits}"
     assert "importlib" not in text or "jax" not in text
     assert "importlib" not in text or "cv2" not in text
+    assert not FFMPEG_CALL.search(text), f"{path.name} names ffmpeg"
 
 
 def test_episode_modules_are_checked():
@@ -90,7 +97,7 @@ def test_episode_modules_are_checked():
     assert all(port / m in FILES
                for m in EPISODE_MODULES + EVAL_MODULES + OBJECT_MODULES
                + KNOWN_ENV_MODULES + UPEN_MODULES + PLANNING_API_MODULES
-               + HABITAT_TOOLS_MODULES + PARALLEL_MODULES)
+               + HABITAT_TOOLS_MODULES + PARALLEL_MODULES + VIDEO_MODULES)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -108,6 +115,21 @@ def test_optional_packages_stay_gated(path):
                 f"{rel} imports {name} at module level"
 
 
+def test_video_encoder_imports_numpy_and_the_standard_library():
+    """utils/video.py writes the mp4 with numpy and struct alone."""
+    tree = ast.parse((ROOT / "fisher_nerf_customized_tpu_torch" / "utils"
+                      / "video.py").read_text())
+    names = {a.name.split(".")[0] for n in ast.walk(tree)
+             if isinstance(n, ast.Import) for a in n.names}
+    names |= {n.module.split(".")[0] for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0}
+    assert names == {"__future__", "numpy", "struct"}
+    assert not any(isinstance(n, ast.ImportFrom) and n.level
+                   for n in ast.walk(tree))
+    assert FFMPEG_CALL.search("subprocess.run(['ffmpeg', '-i'])")
+    assert not FFMPEG_CALL.search("FFmpeg's decoder")
+
+
 def test_forbidden_pattern_catches_jax_imports():
     bad = ["import jax", "import jax.numpy as jnp", "from jax import lax",
            "from fisher_nerf_customized_tpu.ops import fisher",
@@ -116,11 +138,12 @@ def test_forbidden_pattern_catches_jax_imports():
            "import cv2", "    import cv2  # noqa", "from cv2 import line",
            "from PIL import Image", "import matplotlib.pyplot as plt",
            "import flax.linen as nn", "from flax.core import FrozenDict",
-           "import optax"]
+           "import optax", "import imageio", "import imageio.v3 as iio",
+           "import av", "from av import open"]
     good = ["import torch", "from fisher_nerf_customized_tpu_torch.ops "
             "import fisher", "from .ops import binning",
             "from ..utils.raster import fill_poly", "import cv2x",
-            "import flaxen"]
+            "import flaxen", "import avro", "import average"]
     assert all(FORBIDDEN.search(s) for s in bad)
     assert not any(FORBIDDEN.search(s) for s in good)
 
