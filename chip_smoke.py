@@ -126,17 +126,17 @@ before it) and the seconds since the start (at_s):
   navigation       the frontier-only pipeline through its entry point
                    (cli.run_navigation, as `python -m
                    fisher_nerf_customized_tpu_torch.main_navigation` runs
-                   it) on fake_apartment_0 for 100 steps: the spin,
+                   it) on fake_apartment_0 for 50 steps: the spin,
                    occupancy, FBE goals, the sweep planner, and the recon
                    metric of the whole cloud every 25 steps (the 1-NN
                    kernel, launch count zeroed just before and read just
                    after); the final recon held to cKDTree's at rtol 1e-9;
   tracking         optimized tracking through the entry point
                    (cli.run_scene with --set tracking.use_gt_poses False)
-                   on fake_apartment_0 at the same width, 30 steps, no
+                   on fake_apartment_0 at the same width, 20 steps, no
                    evaluation: every frame's pose tracked (40 Adam steps
                    of K1 + K2 on (q, t), doubled when the depth loss stays
-                   at 20000 or above), 3 mapping events on the tracked
+                   at 20000 or above), 2 mapping events on the tracked
                    poses.  Launch counts zeroed just before and read just
                    after (K1 and K2 must run).  Prints the wall time, the
                    seconds in _track_pose (wrapped here with a CUDA sync),
@@ -152,7 +152,7 @@ before it) and the seconds since the start (at_s):
                    (cli.run_scene with configs/mp3d_gaussian_UPEN_fbe.yaml)
                    on fake_apartment_0 at full width (256x256, capacity
                    131072, a 5 cm map; UPEN's 192x192 grid at 10 cm, its
-                   4-member ensemble on 64x64 crops), 100 steps, no
+                   4-member ensemble on 64x64 crops), 50 steps, no
                    evaluation: UPEN.observe every step, FBE goals at each
                    replan, mapping events (K1, K2), the recon metric (the
                    1-NN).  Launch counts zeroed just before and read just
@@ -385,6 +385,39 @@ before it) and the seconds since the start (at_s):
                    NCCL (equal to the bit to what it sent) and runs
                    sharded_pose_scores against _pose_scores (rtol 1e-6:
                    K3's scatter-add order);
+  fbe_episode      the FBE baseline (policy frontier: the first valid
+                   path of each planning event, no H_train and no path
+                   EIG) through the entry point with
+                   configs/mp3d_gaussian_FR_eccv_gaussians.yaml on
+                   fake_apartment_0, 100 steps, evaluated over 256 poses.
+                   Launch counts zeroed just before and read just after:
+                   K1 and K2 must run, K3 must not (neither width).
+                   Prints the wall, the per-phase timer and the launches;
+                   the running recon equals the one-shot metric on the
+                   final cloud with the 1-NN kernel and with cKDTree (rtol
+                   1e-9);
+  random_walk      the random walk (ActiveMapper's numpy generator fills
+                   the queue; the sim's collisions end a blocked forward)
+                   through the entry point at the eccv config's 256x256,
+                   30 steps on the card, and the same seed's episode on
+                   the CPU (--device cpu, mapping.num_iters 1): the two
+                   action lists must be equal;
+  frontier_large   the large operating point,
+                   configs/mp3d_gaussian_FR_frontier.yaml --img_size 800
+                   (fx = fy = 400, 0.05 m steps, 5 degree turns, queue 30,
+                   60 iterations a mapping event, K 512 from the first
+                   render, T = 2500 tiles of 16x16), through the entry
+                   point on fake_apartment_0, 40 steps (the 18-turn init
+                   scan, then FBE), evaluated over 256 poses.  Launch
+                   counts zeroed just before and read just after: K1 and
+                   K2 must run, K3 must not.  Prints the wall, the
+                   per-phase timer, n_gaussians, every capacity the map
+                   grew through, the card's peak allocated memory and the
+                   K1 and K2 launches by (T, K); then on one mapping render
+                   of the final map (the last keyframe, K 512, C 4) holds
+                   K1 and K2 to their plain twins with kernel_blend's and
+                   kernel_blend_bwd's tolerances, and times them (device
+                   ms over 20) with their live-pair bounds;
   kernels          one line per kernel with its launches (the episode's;
                    the probe-batched K2's from the object episode, the
                    1-NN's from the known-env episode) and max error; K3's
@@ -464,10 +497,10 @@ MIN_OBJECT_MAPPING = 3
 # the known-environment episode (--object_scene --known_env) on the object
 # scene, and the frontier-only navigation on the episode's scene
 KNOWN_ENV_STEPS = 20     # 40 before: the found object's first planning
-NAV_STEPS = 100          # event comes in the first 20 steps
+NAV_STEPS = 50           # event comes in the first 20 steps
 # the recon update's sub-phases in the episode's timer (engine/driver.py::
 # ActiveMapper._recon_update, engine/eval.py::IncrementalReconMetric.update)
-TRACK_STEPS = 30        # the tracked episode: 3 mapping events
+TRACK_STEPS = 20        # the tracked episode: 2 mapping events
 # The JAX package's position errors (m) on the tracked episode's first four
 # frames (the init frame again and three 10-degree turns of the scripted
 # init scan: before any mapping or planning event, so the same frames on
@@ -483,7 +516,7 @@ RECON_SUB_PHASES = ("new_points", "upload", "nn1", "download", "recompute",
 # the UPEN episode (configs/mp3d_gaussian_UPEN_fbe.yaml) on SCENE, the
 # DINO-gated object episode on OBJECT_SCENE, and the FisherRF episode
 # writing the navigation images on SCENE (topdown PNGs at steps 0 and 20)
-UPEN_STEPS = 100
+UPEN_STEPS = 50
 MIN_UPEN_REPLANS = 2
 DINO_STEPS = 20
 NAV_IMAGES_STEPS = 30
@@ -509,6 +542,12 @@ SHARDED_STEPS = 40      # the first planning event comes inside it
 SHARDED_RANKS = 2
 SHARDED_WALL_S = 420    # each spawned group's wall limit
 SHARDED_COLLECTIVE_S = 180
+FBE_STEPS = 100
+FBE_EVAL_POSES = 256
+RANDOM_WALK_STEPS = 30
+LARGE_STEPS = 40        # the 18-turn init scan, then FBE
+LARGE_EVAL_POSES = 256
+LARGE_IMG = 800
 
 
 T_START = time.perf_counter()
@@ -4177,6 +4216,419 @@ def run_sharded_cards(n, log_dir, report):
                   f"{tm1.get(name)}")
 
 
+def print_timer(timing):
+    """The per-phase timer of an episode, one line a phase."""
+    for name, v in timing.items():
+        print(f"  timer {name}: {v}")
+
+
+def recorded_actions():
+    """Wrap FakeSim.step (the class's, so the entry point's sim too) to
+    append each action to a list: (the list, a function that restores
+    FakeSim.step)."""
+    from fisher_nerf_customized_tpu_torch.envs import fake_sim
+    actions, orig = [], fake_sim.FakeSim.step
+
+    def step(self, action):
+        actions.append(int(action))
+        return orig(self, action)
+
+    fake_sim.FakeSim.step = step
+    return actions, lambda: setattr(fake_sim.FakeSim, "step", orig)
+
+
+def policy_row(result, wall_s, launches):
+    """The common row of a policy phase's episode."""
+    return dict(steps=result["steps"], done_reason=result["done_reason"],
+                wall_s=wall_s, steps_per_s=result["steps"] / wall_s,
+                planning_events=result["planning_events"],
+                coverage_2d_pct=result["coverage_2d_pct"],
+                n_gaussians=result["n_gaussians"],
+                stuck_total=result["stuck_total"],
+                **{f"launches_{k}": v for k, v in launches.items()})
+
+
+def check_no_scoring(tag, mapper, launches):
+    """K1 and K2 ran, K3 did not (neither width), and every planning
+    event took its first path (FBE plans without scores)."""
+    if launches["blend"] <= 0 or launches["blend_bwd"] <= 0:
+        raise AssertionError(f"{tag}: K1 or K2 was not launched: {launches}")
+    if launches["fisher"] or launches["fisher_nf20"]:
+        raise AssertionError(f"{tag}: K3 was launched: {launches}")
+    if any(e["best"] != 0 or e["scores"] is not None
+           for e in mapper.plan_log):
+        raise AssertionError(f"{tag}: a planning event scored its paths")
+
+
+def check_eval_result(tag, result, n_poses):
+    ev = result["eval"]
+    if ev["n_poses"] != n_poses or not all(
+            np.isfinite(v) for k, v in ev.items() if k != "per_pose"):
+        raise AssertionError(f"{tag}: eval malformed: {ev}")
+
+
+def run_fbe_episode(log_dir):
+    """The fbe_episode phase (see the module docstring): (row, result)."""
+    from fisher_nerf_customized_tpu_torch import cli
+    args = cli.build_parser().parse_args([
+        "--slam_config", os.path.join(
+            HERE, "configs", "mp3d_gaussian_FR_eccv_gaussians.yaml"),
+        "--scenes_list", SCENE, "--max_steps", str(FBE_STEPS),
+        "--eval_poses", str(FBE_EVAL_POSES), "--log_dir", log_dir,
+        "--name", "fbe_episode"])
+    cfg = cli.load_config(args)
+    result, mapper, wall_s, launches = timed_entry_point(args, cfg, SCENE)
+    row = policy_row(result, wall_s, launches)
+    if result["policy"] != "frontier" or result["steps"] != FBE_STEPS:
+        raise AssertionError(f"fbe_episode: {result['policy']} ended at step "
+                             f"{result['steps']} ({result['done_reason']})")
+    if result["planning_events"] < 1 or launches["nn1"] <= 0:
+        raise AssertionError(f"fbe_episode: no planning event or no 1-NN "
+                             f"launch: {row}")
+    check_no_scoring("fbe_episode", mapper, launches)
+    check_eval_result("fbe_episode", result, FBE_EVAL_POSES)
+    # the running recon (the card's 1-NN, update by update) against the
+    # one-shot metric on the final cloud, on the card and with cKDTree
+    check = recon_card_check(mapper.global_pcl.get(), mapper._inc_recon.gt,
+                             0.05, mapper.scene.surface_distance)
+    for k, v in result["recon"].items():
+        for side in ("card", "host"):
+            ref = check[f"{side}_{k}"]
+            if abs(v - ref) > 1e-9 * max(abs(ref), 1e-300):
+                raise AssertionError(f"fbe_episode: running recon "
+                                     f"{result['recon']} off the one-shot "
+                                     f"{side} metric {check}")
+    row.update(auc=result["auc"],
+               **{f"eval_{k}": result["eval"][k]
+                  for k in ("psnr", "ssim", "depth_mae")},
+               **{f"recon_{k}": v for k, v in result["recon"].items()},
+               recon_check_rel_err_max=check["rel_err_max"],
+               recon_check_argmin_disagreements=check[
+                   "argmin_disagreements"])
+    return row, result
+
+
+def run_random_walk(log_dir):
+    """The random_walk phase (see the module docstring): the row."""
+    from fisher_nerf_customized_tpu_torch import cli
+    argv = ["--slam_config", os.path.join(HERE, "configs",
+                                          "mp3d_gaussian_FR_eccv.yaml"),
+            "--policy", "random_walk", "--scenes_list", SCENE,
+            "--max_steps", str(RANDOM_WALK_STEPS), "--eval_poses", "0",
+            "--log_dir", log_dir]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        extra = (["--name", "random_walk"] if device == "cuda" else
+                 ["--name", "random_walk_cpu", "--device", "cpu",
+                  "--set", "mapping.num_iters", "1"])
+        args = cli.build_parser().parse_args(argv + extra)
+        cfg = cli.load_config(args)
+        actions, restore = recorded_actions()
+        try:
+            if device == "cuda":
+                result, _m, wall_s, launches = timed_entry_point(
+                    args, cfg, SCENE)
+            else:
+                t0 = time.perf_counter()
+                result, _m = cli.run_scene(args, cfg, SCENE)
+                wall_s, launches = time.perf_counter() - t0, None
+        finally:
+            restore()
+        runs[device] = (result, actions, wall_s, launches)
+    result, card, wall_s, launches = runs["cuda"]
+    cpu_result, cpu, cpu_wall_s, _l = runs["cpu"]
+    row = policy_row(result, wall_s, launches)
+    row.update(cpu_wall_s=cpu_wall_s, forwards=card.count(1),
+               cpu_stuck_total=cpu_result["stuck_total"])
+    if result["steps"] != RANDOM_WALK_STEPS or len(card) != \
+            RANDOM_WALK_STEPS:
+        raise AssertionError(f"random_walk: ended at step {result['steps']}"
+                             f" ({result['done_reason']})")
+    if card != cpu:
+        split = next(i for i, (a, b) in enumerate(zip(card + [None],
+                                                      cpu + [None]))
+                     if a != b)
+        raise AssertionError(f"random_walk: the card's actions part from "
+                             f"the CPU's at step {split}: {card} {cpu}")
+    if launches["blend"] <= 0 or launches["blend_bwd"] <= 0 or \
+            launches["fisher"] or launches["fisher_nf20"] or \
+            result["planning_events"]:
+        raise AssertionError(f"random_walk: launches {launches}, "
+                             f"{result['planning_events']} planning events")
+    return row
+
+
+def run_frontier_large(log_dir):
+    """The frontier_large phase (see the module docstring): (row, the
+    kernel rows of K1 and K2 on its final map)."""
+    import collections
+    import torch
+    from fisher_nerf_customized_tpu_torch import cli
+    from fisher_nerf_customized_tpu_torch.models import slam as tslam
+    from fisher_nerf_customized_tpu_torch.ops import rasterize
+    from fisher_nerf_customized_tpu_torch.ops.binning import tile_bin
+    from fisher_nerf_customized_tpu_torch.ops.projection import preprocess
+    args = cli.build_parser().parse_args([
+        "--slam_config", os.path.join(HERE, "configs",
+                                      "mp3d_gaussian_FR_frontier.yaml"),
+        "--img_size", str(LARGE_IMG), "--scenes_list", SCENE,
+        "--max_steps", str(LARGE_STEPS),
+        "--eval_poses", str(LARGE_EVAL_POSES), "--log_dir", log_dir,
+        "--name", "frontier_large"])
+    cfg = cli.load_config(args)
+    # the shapes K1 and K2 are launched at, and the capacities the map
+    # grows through
+    shapes = {"blend": collections.Counter(),
+              "blend_bwd": collections.Counter()}
+    grown = []
+    orig = dict(blend=rasterize.cuda_blend, blend_bwd=rasterize.cuda_blend_bwd,
+                grow=tslam.grow_state)
+
+    def blend(packed, *a, **kw):
+        shapes["blend"][tuple(packed.shape[:2])] += 1
+        return orig["blend"](packed, *a, **kw)
+
+    def blend_bwd(packed, *a, **kw):
+        shapes["blend_bwd"][tuple(packed.shape[:2])] += 1
+        return orig["blend_bwd"](packed, *a, **kw)
+
+    def grow(state, capacity):
+        grown.append(int(capacity))
+        return orig["grow"](state, capacity)
+
+    rasterize.cuda_blend, rasterize.cuda_blend_bwd = blend, blend_bwd
+    tslam.grow_state = grow
+    actions, restore = recorded_actions()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        result, mapper, wall_s, launches = timed_entry_point(args, cfg, SCENE)
+    finally:
+        rasterize.cuda_blend, rasterize.cuda_blend_bwd = (orig["blend"],
+                                                          orig["blend_bwd"])
+        tslam.grow_state = orig["grow"]
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    slam = mapper.slam
+    row = policy_row(result, wall_s, launches)
+    row.update(img=slam.camera.width, fx=slam.camera.fx,
+               forwards=actions.count(1),
+               capacity=slam.state.capacity, grown_through=grown,
+               max_memory_allocated_gib=peak / 2 ** 30,
+               auc=result["auc"],
+               **{f"eval_{k}": result["eval"][k]
+                  for k in ("psnr", "ssim", "depth_mae")},
+               **{f"shapes_{name}": {f"T{t}_K{k}": n for (t, k), n in
+                                     sorted(c.items())}
+                  for name, c in shapes.items()})
+    if slam.camera.width != LARGE_IMG or slam.camera.fx != LARGE_IMG / 2:
+        raise AssertionError(f"frontier_large: the camera is "
+                             f"{slam.camera}, not {LARGE_IMG}x{LARGE_IMG}")
+    if result["steps"] != LARGE_STEPS or result["policy"] != "frontier":
+        raise AssertionError(f"frontier_large: {result['policy']} ended at "
+                             f"step {result['steps']} "
+                             f"({result['done_reason']})")
+    scan = int(90 // float(cfg.turn_angle))
+    if actions[:scan] != [2] * scan or 1 not in actions[scan:]:
+        raise AssertionError(f"frontier_large: not a {scan}-turn init scan "
+                             f"and then FBE: {actions}")
+    check_no_scoring("frontier_large", mapper, launches)
+    check_eval_result("frontier_large", result, LARGE_EVAL_POSES)
+    if not grown or slam.state.capacity <= int(cfg.tpu.capacity):
+        raise AssertionError(f"frontier_large: the map did not grow past "
+                             f"{cfg.tpu.capacity} slots: {grown}")
+    n_tiles = (LARGE_IMG // int(cfg.tpu.tile_size)) ** 2
+    if sum(shapes["blend"].values()) != launches["blend"] or \
+            sum(shapes["blend_bwd"].values()) != launches["blend_bwd"] or \
+            not shapes["blend_bwd"][(n_tiles, int(cfg.tpu.max_per_tile))]:
+        raise AssertionError(f"frontier_large: launches {launches} at "
+                             f"{dict(shapes)}")
+    if not np.isfinite(list(result["recon"].values())).all():
+        raise AssertionError(f"frontier_large: recon {result['recon']}")
+
+    # K1 and K2 on one mapping render of the final map, at the last
+    # keyframe's pose: T 2500, K 512, C 4
+    params = slam.state.params()
+    i = len(slam.keyframes) - 1
+    w2c = slam._w2c(slam.keyframes.w2cs[i])
+    means_cam, scales, quats, opac = tslam._gaussian_rendervars(params, w2c)
+    z = means_cam[:, 2:3]
+    prep = preprocess(means_cam, scales, quats, slam.camera,
+                      active=slam.state.active)
+    st = slam.settings
+    bins = tile_bin(prep.mean2d, prep.radius, prep.depth, prep.valid,
+                    slam.camera.width, slam.camera.height, st.tile_size,
+                    st.max_per_tile)
+    k1, fwd = check_blend(st, prep, bins, opac,
+                          torch.cat([params["rgb_colors"], z], dim=-1))
+    dev = z.device
+    k2 = check_blend_bwd(st, bins, fwd, slam.camera, slam.mc,
+                         slam.keyframes.color_dev(i, dev),
+                         slam.keyframes.depth_dev(i, dev),
+                         torch.Generator().manual_seed(0))
+    if (k1["T"], k1["K"]) != (n_tiles, 512):
+        raise AssertionError(f"frontier_large: K1 checked at T {k1['T']}, "
+                             f"K {k1['K']}")
+    return row, result, dict(blend=k1, blend_bwd=k2)
+
+
+def check_blend(st, prep, bins, opac, cols):
+    """K1 against its plain twin on the card, on one render's lists at the
+    settings st (K = st.max_per_tile, C = cols' width): the rows walked
+    tile by tile, colour, final T and median depth with their tolerances,
+    the device ms over 20 launches, the wrapper's host ms, the twin's ms,
+    the pair counts and the live-pair bound.  Returns (row, the inputs and
+    outputs K2's check takes: packed, pix_xy, nvalid, the kernel's
+    outputs, its rows walked, the twin's)."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.ops import cuda_blend
+    from fisher_nerf_customized_tpu_torch.ops.rasterize import (
+        blend_kernel_inputs)
+    k, n_ch = st.max_per_tile, cols.shape[-1]
+    packed, pix_xy, nvalid = blend_kernel_inputs(st, prep, bins, opac,
+                                                 cols)
+    got, got_walked = cuda_blend.cuda_blend(
+        packed, pix_xy, nvalid, st.chunk, st.max_depth)
+    ref, walked = cuda_blend._blend_walk(packed, pix_xy, nvalid,
+                                         st.chunk, st.max_depth)
+    torch.cuda.synchronize()
+    # the stop: the kernel's rows walked against the twin's, tile by
+    # tile; a tile may differ only where its max T after the chunk
+    # lies within float rounding of the 1e-4 threshold
+    off_tiles = torch.nonzero(got_walked.long() != walked).flatten()
+    for t in off_tiles.tolist():
+        cut = min(int(got_walked[t]), int(walked[t]))
+        (_c, t_cut, _m), _w = cuda_blend._blend_walk(
+            packed[t:t + 1], pix_xy[t:t + 1],
+            torch.minimum(nvalid[t:t + 1], torch.tensor(
+                cut, dtype=nvalid.dtype, device=packed.device)),
+            st.chunk, st.max_depth)
+        t_max = float(t_cut.max())
+        print(f"  K1 K={k} C={n_ch} tile {t}: walked "
+              f"{int(got_walked[t])} vs twin {int(walked[t])}, max T "
+              f"after row {cut} = {t_max!r}")
+        if abs(t_max / cuda_blend.SATURATED_T - 1.0) > 1e-4:
+            raise AssertionError(f"K1 K={k} C={n_ch}: stop differs "
+                                 f"on tile {t}")
+    err_c = float((got[0] - ref[0]).abs().max())
+    err_t = float((got[1] - ref[1]).abs().max())
+    dz = (got[2] - ref[2]).abs()
+    err_z = float(dz.max())
+    z_off = float((dz > 1e-2).float().mean())
+    # tolerance: color and final T atol 3e-4 everywhere; median
+    # depth atol 1e-2 on all but 0.1 % of pixels (T = 0.5 ties)
+    if not (err_c <= 3e-4 and err_t <= 3e-4 and z_off <= 1e-3):
+        raise AssertionError(
+            f"K1 K={k} C={n_ch}: color {err_c} T {err_t} "
+            f"depth off {z_off}")
+    launch = functools.partial(cuda_blend.cuda_blend, packed, pix_xy,
+                               nvalid, st.chunk, st.max_depth)
+    ms_events = cuda_ms(launch, 20)
+    ms = kernel_device_ms(launch, "blend_kernel", 20)
+    wrapper_ms = host_ms(launch, 200)
+    plain = cuda_ms(lambda: cuda_blend.blend_plain(
+        packed, pix_xy, nvalid, st.chunk, st.max_depth), 3)
+    n_tiles, _k, f = packed.shape
+    p = pix_xy.shape[-1]
+    # rows the walk needs: up to the stop, and none past nvalid
+    need = torch.minimum(walked, nvalid.long())
+    rows = int(need.sum())
+    pairs = pair_counts(packed, pix_xy, nvalid, walked,
+                        cuda_blend.WARP)
+    n_bytes = (rows * f + n_tiles * 2 * p + n_tiles
+               + n_tiles * p * (n_ch + 2) + n_tiles) * 4
+    ops = pairs["pairs_live"] * (K1_FLOPS_PER_LIVE_PAIR[0]
+                                 + K1_FLOPS_PER_LIVE_PAIR[1] * n_ch)
+    bms, bby = bound_ms(n_bytes, ops)
+    bwalked, _ = bound_ms(n_bytes, rows * p * FLOPS_PER_PAIR)
+    row = dict(K=k, C=n_ch, T=n_tiles, P=p, chunk=st.chunk,
+               rows_needed=rows, rows_valid=int(nvalid.sum()),
+               nvalid_mean=float(nvalid.float().mean()),
+               nvalid_max=int(nvalid.max()),
+               rows_needed_max=int(need.max()), **pairs,
+               stop_off_tiles=len(off_tiles),
+               err_color=err_c, err_t=err_t, err_depth=err_z,
+               depth_off_frac=z_off, ms=ms, ms_events=ms_events,
+               host_ms=wrapper_ms, plain_ms=plain, bound_ms=bms,
+               bound_by=bby,
+               bound_walked_ms=bwalked)
+    return row, (packed, pix_xy, nvalid, got, got_walked, walked)
+
+
+def check_blend_bwd(st, bins, fwd_inputs, camera, mc, gt_color, gt_depth,
+                    gen):
+    """K2 against its plain twin on the card, on K1's inputs and outputs
+    from check_blend, with the mapping loss's cotangent against the ground
+    truth (gt_color, gt_depth at `camera`; `mc` the mapping config) and a
+    random final-T cotangent from `gen`: the tolerance, the device ms over
+    20 launches, the wrapper's host ms, the twin's ms, the pair counts and
+    the live-pair bound.  Returns the row."""
+    import torch
+    from fisher_nerf_customized_tpu_torch.models import slam as tslam
+    from fisher_nerf_customized_tpu_torch.ops import (cuda_blend,
+                                                      cuda_blend_bwd)
+    from fisher_nerf_customized_tpu_torch.ops.rasterize import (
+        _tiles_to_image)
+    packed, pix_xy, nvalid, fwd, fwd_walked, walked = fwd_inputs
+    k = st.max_per_tile
+    dev = packed.device
+    # gcol: the mapping loss's cotangent of the blended [r, g, b, z]
+    color = fwd[0].detach().requires_grad_()
+    img = _tiles_to_image(color, bins.n_tiles_y, bins.n_tiles_x,
+                          st.tile_size, camera.height, camera.width)
+    loss = tslam._rgbd_loss(img[..., :3], img[..., 3], gt_color, gt_depth,
+                            mc)
+    gcol, = torch.autograd.grad(loss, [color])
+    g_t = (torch.randn(fwd[1].shape, generator=gen)
+           * float(gcol.std())).to(dev)
+    args = (packed, pix_xy, gcol.contiguous(), g_t, nvalid, st.chunk)
+    fwd_out = dict(color=fwd[0], t_final=fwd[1], walked=fwd_walked)
+    ref = cuda_blend_bwd.blend_bwd_plain(*args)
+    col_max = ref.abs().reshape(-1, ref.shape[-1]).amax(dim=0)
+    n_tiles, _k, f = packed.shape
+    p = pix_xy.shape[-1]
+    n_ch = f - cuda_blend.BASE_F
+    rows = int(torch.minimum(walked, nvalid.long()).sum())
+    n_bytes = (rows * f + n_tiles * 2 * p + n_tiles
+               + n_tiles * p * (n_ch + 1)            # gcol, g_t
+               + n_tiles * p * (n_ch + 1) + n_tiles  # K1's outputs
+               + n_tiles * k * (6 + n_ch)) * 4
+    bwalked, _ = bound_ms(n_bytes, rows * p * FLOPS_PER_PAIR)
+    got = cuda_blend_bwd.cuda_blend_bwd(*args, **fwd_out)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    # tolerance: rtol 1e-3 plus 1e-4 of the output column's largest
+    # value.  The kernel sums each slot's P pixels by warp shuffles and
+    # fixed-order shared-memory adds and forms the suffix sums as
+    # gcol . C_final minus the running prefix; the twin uses torch's
+    # sum, cumprod and cumsum, so the two round differently, most where
+    # a suffix cancels (dL/dalpha near 0)
+    bad = err > 1e-3 * ref.abs() + 1e-4 * col_max
+    if float(col_max.max()) <= 0 or bool(bad.any()):
+        raise AssertionError(
+            f"K2 K={k}: {int(bad.sum())} entries off, max err per "
+            f"column {err.reshape(-1, err.shape[-1]).amax(0).tolist()} "
+            f"of {col_max.tolist()}")
+    launch = functools.partial(cuda_blend_bwd.cuda_blend_bwd, *args,
+                               **fwd_out)
+    ms_events = cuda_ms(launch, 20)
+    ms = kernel_device_ms(launch, "blend_bwd_kernel", 20)
+    wrapper_ms = host_ms(launch, 200)
+    plain = cuda_ms(lambda: cuda_blend_bwd.blend_bwd_plain(*args), 3)
+    pairs = pair_counts(packed, pix_xy, nvalid, walked,
+                        cuda_blend_bwd.PIXELS_PER_WARP)
+    ops = pairs["pairs_live"] * (K2_FLOPS_PER_LIVE_PAIR[0]
+                                 + K2_FLOPS_PER_LIVE_PAIR[1] * n_ch)
+    bms, bby = bound_ms(n_bytes, ops)
+    row = dict(K=k, C=n_ch, T=n_tiles, P=p, chunk=st.chunk,
+               rows_needed=rows, rows_valid=int(nvalid.sum()),
+               max_value=float(col_max.max()),
+               max_abs_err=float(err.max()), ms=ms, ms_events=ms_events,
+               host_ms=wrapper_ms, plain_ms=plain, bound_ms=bms,
+               bound_by=bby, bound_walked_ms=bwalked, **pairs)
+    return row
+
+
 def device_ms_and_launches(fn):
     """Device time (ms, the profiler's kernel rows) and kernel launches of
     one call of fn, after a warm-up call."""
@@ -4230,8 +4682,6 @@ def main(argv=None):
         fisher_kernel_inputs)
     from fisher_nerf_customized_tpu_torch.ops.image import calc_psnr
     from fisher_nerf_customized_tpu_torch.ops.projection import preprocess
-    from fisher_nerf_customized_tpu_torch.ops.rasterize import (
-        _tiles_to_image, blend_kernel_inputs)
     from fisher_nerf_customized_tpu_torch.planning.candidates import (
         generate_candidates)
 
@@ -4633,78 +5083,11 @@ def main(argv=None):
         for n_ch in (4, 5):
             cols = torch.cat([params["rgb_colors"], z] + ([z * z] if n_ch == 5
                                                           else []), dim=-1)
-            packed, pix_xy, nvalid = blend_kernel_inputs(st, prep, bins, opac,
-                                                         cols)
-            got, got_walked = cuda_blend.cuda_blend(
-                packed, pix_xy, nvalid, st.chunk, st.max_depth)
-            ref, walked = cuda_blend._blend_walk(packed, pix_xy, nvalid,
-                                                 st.chunk, st.max_depth)
-            torch.cuda.synchronize()
-            # the stop: the kernel's rows walked against the twin's, tile by
-            # tile; a tile may differ only where its max T after the chunk
-            # lies within float rounding of the 1e-4 threshold
-            off_tiles = torch.nonzero(got_walked.long() != walked).flatten()
-            for t in off_tiles.tolist():
-                cut = min(int(got_walked[t]), int(walked[t]))
-                (_c, t_cut, _m), _w = cuda_blend._blend_walk(
-                    packed[t:t + 1], pix_xy[t:t + 1],
-                    torch.minimum(nvalid[t:t + 1], torch.tensor(
-                        cut, dtype=nvalid.dtype, device=dev)),
-                    st.chunk, st.max_depth)
-                t_max = float(t_cut.max())
-                print(f"  K1 K={k} C={n_ch} tile {t}: walked "
-                      f"{int(got_walked[t])} vs twin {int(walked[t])}, max T "
-                      f"after row {cut} = {t_max!r}")
-                if abs(t_max / cuda_blend.SATURATED_T - 1.0) > 1e-4:
-                    raise AssertionError(f"K1 K={k} C={n_ch}: stop differs "
-                                         f"on tile {t}")
-            err_c = float((got[0] - ref[0]).abs().max())
-            err_t = float((got[1] - ref[1]).abs().max())
-            dz = (got[2] - ref[2]).abs()
-            err_z = float(dz.max())
-            z_off = float((dz > 1e-2).float().mean())
-            # tolerance: color and final T atol 3e-4 everywhere; median
-            # depth atol 1e-2 on all but 0.1 % of pixels (T = 0.5 ties)
-            if not (err_c <= 3e-4 and err_t <= 3e-4 and z_off <= 1e-3):
-                raise AssertionError(
-                    f"K1 K={k} C={n_ch}: color {err_c} T {err_t} "
-                    f"depth off {z_off}")
-            launch = functools.partial(cuda_blend.cuda_blend, packed, pix_xy,
-                                       nvalid, st.chunk, st.max_depth)
-            ms_events = cuda_ms(launch, 20)
-            ms = kernel_device_ms(launch, "blend_kernel", 20)
-            wrapper_ms = host_ms(launch, 200)
-            plain = cuda_ms(lambda: cuda_blend.blend_plain(
-                packed, pix_xy, nvalid, st.chunk, st.max_depth), 3)
-            n_tiles, _k, f = packed.shape
-            p = pix_xy.shape[-1]
-            # rows the walk needs: up to the stop, and none past nvalid
-            need = torch.minimum(walked, nvalid.long())
-            rows = int(need.sum())
-            pairs = pair_counts(packed, pix_xy, nvalid, walked,
-                                cuda_blend.WARP)
-            n_bytes = (rows * f + n_tiles * 2 * p + n_tiles
-                       + n_tiles * p * (n_ch + 2) + n_tiles) * 4
-            ops = pairs["pairs_live"] * (K1_FLOPS_PER_LIVE_PAIR[0]
-                                         + K1_FLOPS_PER_LIVE_PAIR[1] * n_ch)
-            bms, bby = bound_ms(n_bytes, ops)
-            bwalked, _ = bound_ms(n_bytes, rows * p * FLOPS_PER_PAIR)
-            row = dict(K=k, C=n_ch, T=n_tiles, P=p, chunk=st.chunk,
-                       rows_needed=rows, rows_valid=int(nvalid.sum()),
-                       nvalid_mean=float(nvalid.float().mean()),
-                       nvalid_max=int(nvalid.max()),
-                       rows_needed_max=int(need.max()), **pairs,
-                       stop_off_tiles=len(off_tiles),
-                       err_color=err_c, err_t=err_t, err_depth=err_z,
-                       depth_off_frac=z_off, ms=ms, ms_events=ms_events,
-                       host_ms=wrapper_ms, plain_ms=plain, bound_ms=bms,
-                       bound_by=bby,
-                       bound_walked_ms=bwalked)
+            row, fwd = check_blend(st, prep, bins, opac, cols)
             blend_rows.append(row)
             phase("kernel_blend", **fmt(row))
             if n_ch == 4:
-                bwd_inputs[k] = (st, bins, packed, pix_xy, nvalid, got,
-                                 got_walked, walked)
+                bwd_inputs[k] = (st, bins) + fwd
     main_blend = blend_rows[0]          # K 256, C 4: the mapping render
     entries["blend"] = dict(
         name="blend", route="cuda",
@@ -4721,63 +5104,9 @@ def main(argv=None):
     gt_depth = probe.keyframes.depth_dev(len(probe.keyframes) - 1, dev)
     gen = torch.Generator().manual_seed(0)
     bwd_rows = []
-    for k, (st, bins, packed, pix_xy, nvalid, fwd, fwd_walked,
-            walked) in bwd_inputs.items():
-        # gcol: the mapping loss's cotangent of the blended [r, g, b, z]
-        color = fwd[0].detach().requires_grad_()
-        img = _tiles_to_image(color, bins.n_tiles_y, bins.n_tiles_x,
-                              st.tile_size, probe.camera.height,
-                              probe.camera.width)
-        loss = tslam._rgbd_loss(img[..., :3], img[..., 3], gt_color,
-                                gt_depth, probe.mc)
-        gcol, = torch.autograd.grad(loss, [color])
-        g_t = (torch.randn(fwd[1].shape, generator=gen)
-               * float(gcol.std())).to(dev)
-        args = (packed, pix_xy, gcol.contiguous(), g_t, nvalid, st.chunk)
-        fwd_out = dict(color=fwd[0], t_final=fwd[1], walked=fwd_walked)
-        ref = cuda_blend_bwd.blend_bwd_plain(*args)
-        col_max = ref.abs().reshape(-1, ref.shape[-1]).amax(dim=0)
-        n_tiles, _k, f = packed.shape
-        p = pix_xy.shape[-1]
-        n_ch = f - cuda_blend.BASE_F
-        rows = int(torch.minimum(walked, nvalid.long()).sum())
-        n_bytes = (rows * f + n_tiles * 2 * p + n_tiles
-                   + n_tiles * p * (n_ch + 1)            # gcol, g_t
-                   + n_tiles * p * (n_ch + 1) + n_tiles  # K1's outputs
-                   + n_tiles * k * (6 + n_ch)) * 4
-        bwalked, _ = bound_ms(n_bytes, rows * p * FLOPS_PER_PAIR)
-        got = cuda_blend_bwd.cuda_blend_bwd(*args, **fwd_out)
-        torch.cuda.synchronize()
-        err = (got - ref).abs()
-        # tolerance: rtol 1e-3 plus 1e-4 of the output column's largest
-        # value.  The kernel sums each slot's P pixels by warp shuffles and
-        # fixed-order shared-memory adds and forms the suffix sums as
-        # gcol . C_final minus the running prefix; the twin uses torch's
-        # sum, cumprod and cumsum, so the two round differently, most where
-        # a suffix cancels (dL/dalpha near 0)
-        bad = err > 1e-3 * ref.abs() + 1e-4 * col_max
-        if float(col_max.max()) <= 0 or bool(bad.any()):
-            raise AssertionError(
-                f"K2 K={k}: {int(bad.sum())} entries off, max err per "
-                f"column {err.reshape(-1, err.shape[-1]).amax(0).tolist()} "
-                f"of {col_max.tolist()}")
-        launch = functools.partial(cuda_blend_bwd.cuda_blend_bwd, *args,
-                                   **fwd_out)
-        ms_events = cuda_ms(launch, 20)
-        ms = kernel_device_ms(launch, "blend_bwd_kernel", 20)
-        wrapper_ms = host_ms(launch, 200)
-        plain = cuda_ms(lambda: cuda_blend_bwd.blend_bwd_plain(*args), 3)
-        pairs = pair_counts(packed, pix_xy, nvalid, walked,
-                            cuda_blend_bwd.PIXELS_PER_WARP)
-        ops = pairs["pairs_live"] * (K2_FLOPS_PER_LIVE_PAIR[0]
-                                     + K2_FLOPS_PER_LIVE_PAIR[1] * n_ch)
-        bms, bby = bound_ms(n_bytes, ops)
-        row = dict(K=k, C=n_ch, T=n_tiles, P=p, chunk=st.chunk,
-                   rows_needed=rows, rows_valid=int(nvalid.sum()),
-                   max_value=float(col_max.max()),
-                   max_abs_err=float(err.max()), ms=ms, ms_events=ms_events,
-                   host_ms=wrapper_ms, plain_ms=plain, bound_ms=bms,
-                   bound_by=bby, bound_walked_ms=bwalked, **pairs)
+    for k, (st, bins, *fwd) in bwd_inputs.items():
+        row = check_blend_bwd(st, bins, fwd, probe.camera, probe.mc,
+                              gt_color, gt_depth, gen)
         bwd_rows.append(row)
         phase("kernel_blend_bwd", **fmt(row))
     main_bwd = bwd_rows[0]              # K 256: the mapping backward
@@ -4790,7 +5119,7 @@ def main(argv=None):
         bound_ms=main_bwd["bound_ms"], bound_by=main_bwd["bound_by"],
         library_ms=None)
     report["kernel_blend_bwd"] = bwd_rows
-    del bwd_inputs, fwd, fwd_out, color, gcol, g_t, args, got, ref
+    del bwd_inputs, fwd
 
     # ---- kernel_fisher ----------------------------------------------------
     cams = candidates(probe_sim, 32, seed=1)
@@ -5029,6 +5358,28 @@ def main(argv=None):
         os.path.join(HERE, "experiments", "chip_smoke"), mapper,
         np.linalg.inv(cands[:slam.pose_chunk]), report)
 
+    # ---- the baseline policies and the large operating point -------------
+    log_dir = os.path.join(HERE, "experiments", "chip_smoke")
+    report["fbe_episode"], f_result = run_fbe_episode(log_dir)
+    phase("fbe_episode", **fmt(report["fbe_episode"]))
+    print_timer(f_result["timing"])
+    report["fbe_episode"]["timing"] = f_result["timing"]
+    report["random_walk"] = run_random_walk(log_dir)
+    phase("random_walk", **fmt(report["random_walk"]))
+    large, l_result, large_kernels = run_frontier_large(log_dir)
+    report["frontier_large"] = dict(large, timing=l_result["timing"],
+                                    kernels=large_kernels)
+    phase("frontier_large", **fmt({k: v for k, v in large.items()
+                                   if not isinstance(v, dict)}))
+    for name, shapes in large.items():
+        if name.startswith("shapes_"):
+            print(f"  {name[7:]} launches by shape: {shapes}")
+    print_timer(l_result["timing"])
+    for name, row in large_kernels.items():
+        phase(f"kernel_{name}", run="frontier_large", **fmt(row))
+    policy_launches = {tag: report[tag] for tag in
+                       ("fbe_episode", "random_walk", "frontier_large")}
+
     # ---- kernels ----------------------------------------------------------
     launches_of = dict(ep_launches,
                        blend_bwd_probes=o_launches["blend_bwd_probes"],
@@ -5044,9 +5395,23 @@ def main(argv=None):
         e["launches"] = launches_of[name] + e["launches_replay"]
         # rank 0's launches in the sharded phase's two-rank episode
         e["launches_sharded"] = sharded_launches.get(name, 0)
+        # the baseline policies' and the large operating point's paths
+        for tag, row in policy_launches.items():
+            e[f"launches_{tag}"] = row.get(f"launches_{name}", 0)
+        if name in large_kernels:
+            k = large_kernels[name]
+            err = (max(k["err_color"], k["err_t"]) if name == "blend"
+                   else k["max_abs_err"])
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            e.update(T_large=k["T"], K_large=k["K"], ms_large=k["ms"],
+                     plain_ms_large=k["plain_ms"],
+                     bound_ms_large=k["bound_ms"],
+                     bound_by_large=k["bound_by"], max_abs_err_large=err)
         phase("kernels", name=name, launches=e["launches"],
               launches_replay=e["launches_replay"],
               launches_sharded=e["launches_sharded"],
+              **{f"launches_{tag}": e[f"launches_{tag}"]
+                 for tag in policy_launches},
               max_abs_err=f"{e['max_abs_err']:.3g}", ms=f"{e['ms']:.4g}")
     report["kernels"] = list(entries.values())
     if opts.json:

@@ -154,11 +154,11 @@ def _stamp(path: str):
 class ActiveMapper:
     def __init__(self, cfg, sim, scene=None, policy_name: str | None = None,
                  eval_dir: str | None = None, seed: int = 0,
-                 traj_actions=None, scene_id: str | None = None,
-                 object_scene: bool = False, dynamic_scene: bool = False,
-                 known_env_points=None, device="cuda",
-                 cluster_manager: ClusterStateManager | None = None,
-                 dino_gate: bool = False, dino_weights: str | None = None):
+                 traj_actions=None, object_scene: bool = False,
+                 dynamic_scene: bool = False, known_env_points=None,
+                 dino_gate: bool = False, dino_weights: str | None = None,
+                 scene_id: str | None = None, device="cuda",
+                 cluster_manager: ClusterStateManager | None = None):
         self.cfg = cfg
         self.sim = sim
         self.scene = scene                    # BoxScene (GT access) or None
@@ -198,8 +198,8 @@ class ActiveMapper:
                 self._dino_extractor = PatchDescriptorExtractor()
 
         self.slam = GaussianSLAM(cfg, eval_dir=self.eval_dir, device=device)
-        self.planner = AstarPlanner(cfg, seed=seed, device=device,
-                                    eval_dir=self.eval_dir)
+        self.planner = AstarPlanner(cfg, eval_dir=self.eval_dir, seed=seed,
+                                    device=device)
         # C-space clearance from the embodied agent radius
         agent_r = getattr(scene, "agent_radius",
                           getattr(sim, "agent_radius", 0.0))

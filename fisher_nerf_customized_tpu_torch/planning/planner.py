@@ -61,8 +61,8 @@ def _host(x) -> np.ndarray:
 
 
 class AstarPlanner:
-    def __init__(self, slam_config, seed: int = 0, device="cuda",
-                 eval_dir: str | None = None):
+    def __init__(self, slam_config, eval_dir: str | None = None,
+                 seed: int = 0, device="cuda"):
         self.cfg = slam_config
         self.eval_dir = eval_dir
         ex = slam_config["explore"]
@@ -249,7 +249,8 @@ class AstarPlanner:
         fr = (~cov) & free & adj
         return np.stack(np.where(fr), axis=1)
 
-    def update_occ_map(self, depth, c2w, t: int):
+    def update_occ_map(self, depth, c2w, t: int, downsample: int = 1):
+        """`downsample` is accepted and ignored, as in the JAX package."""
         self.frame_idx = int(t)
         depth = torch.as_tensor(depth, device=self.device).float()
         if depth.dim() == 3:
@@ -537,15 +538,18 @@ class AstarPlanner:
         return torch.ones(poses.shape[0]), poses
 
     def global_planning(self, pose_evaluation_fn=None, gaussian_points=None,
-                        goal_proposal_fn=None, expansion=1, agent_pose=None,
-                        defer_scores=False, visualize=False):
+                        goal_proposal_fn=None, expansion=1, visualize=False,
+                        agent_pose=None, last_goal=None, slam=None,
+                        defer_scores=False):
         """Frontier-driven candidate poses, scored by EIG, best 20 first.
 
         Returns (poses (<=20, 4, 4), scores, random_gaussian_params) as
         numpy arrays.  With `defer_scores=True`, `pose_evaluation_fn` is
         the asynchronous variant (it returns a resolve closure) and this
         returns one `finish()` closure giving that triple, so the device
-        scores the candidates while the caller goes on."""
+        scores the candidates while the caller goes on.  `visualize`
+        writes the planning image; `last_goal` and `slam` are accepted and
+        ignored, as in the JAX package."""
         candidate_pos, free_space = self.build_frontiers(gaussian_points)
         use_frontier = candidate_pos is not None
         if pose_evaluation_fn is None and not use_frontier:
@@ -639,9 +643,11 @@ class AstarPlanner:
         mask = xyz[:, 1] < self.cam_height
         return slam.render_at_pose(bev_c2w, white_bg=True, mask=mask)
 
-    def global_planning_frontier(self, expansion=1, agent_pose=None):
+    def global_planning_frontier(self, expansion=1, visualize=False,
+                                 agent_pose=None):
         """The frontier-only (FBE) goal, no scoring: (goal (1, 2) world xz,
-        free space), or (None, None) when exploration is exhausted."""
+        free space), or (None, None) when exploration is exhausted.
+        `visualize` is accepted and ignored, as in the JAX package."""
         candidate_pos, free_space = self.build_frontiers(None)
         if candidate_pos is None:
             return None, None
@@ -686,7 +692,8 @@ class AstarPlanner:
     def global_object_planning(self, pose_evaluation_fn=None,
                                gaussian_points=None,
                                gaussian_points_scene=None, expansion=1,
-                               agent_pose=None, criterion: str | None = None):
+                               visualize=False, agent_pose=None,
+                               criterion: str | None = None):
         """Candidate poses on the sorted angle and radius grid around the
         object's footprint cells (its Gaussians' centroid with
         `explore.centering`), kept on the eroded free space, scored by the
@@ -694,7 +701,8 @@ class AstarPlanner:
         ('topt', 'dopt'), best 20 first.  gaussian_points: the object's
         Gaussians; gaussian_points_scene: the scene's, which block cells
         of the free space.  Returns (poses, scores, None) as numpy
-        arrays, or (None, None, None)."""
+        arrays, or (None, None, None).  `visualize` is accepted and
+        ignored, as in the JAX package."""
         if gaussian_points is None or len(np.asarray(gaussian_points)) == 0:
             return None, None, None
         obj_pts = np.asarray(gaussian_points)

@@ -10,8 +10,8 @@ import numpy as np
 import torch
 
 
-def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12):
-    return v / (torch.linalg.vector_norm(v, dim=dim, keepdim=True) + eps)
+def normalize(v: torch.Tensor, axis: int = -1, eps: float = 1e-12):
+    return v / (torch.linalg.vector_norm(v, dim=axis, keepdim=True) + eps)
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Name parity of the port with the JAX package, read from the sources
-with `ast` (neither package is imported).
+"""Name and signature parity of the port with the JAX package, read from
+the sources with `ast` (neither package is imported).
 
 Every public top-level function and class of each JAX module, and every
 public method of those classes, must exist under the same name in the
@@ -8,6 +8,13 @@ port's counterpart and the reason, or in BLOCKED with what it waits
 for.  Each counterpart must exist in the port (also checked by `ast`),
 and each table entry must still be needed: a JAX name the port has
 under its own name, or one the JAX package no longer has, fails.
+
+Where a public function or method (`__init__` included) has a
+counterpart of the same name, the JAX package's positional parameter
+names must be a prefix of the port's, in order, so that a positional
+call binds the same parameter in both; parameters of the port's own
+(`device`, `cluster_manager`, ...) come after.  The exceptions stand in
+SIGNATURES with the reason, and each must still be needed.
 """
 import ast
 from pathlib import Path
@@ -104,6 +111,49 @@ RENAMED = {
 # (JAX module, JAX name) -> what it waits for
 BLOCKED: dict = {}
 
+_ENGINE = ("the engine knob is gone: the tensors' device picks the CUDA "
+           "kernel or its plain twin")
+_PROBES = ("jax.random keys become the drawn Rademacher probes (zs): torch "
+           "cannot reproduce jax.random, so the caller draws them")
+
+# (JAX module, function or Class.method) -> why the port's positional
+# parameters differ from the JAX package's
+SIGNATURES = {
+    ("engine/path_eval.py", "path_eig_scores"): _ENGINE,
+    ("ops/fisher.py", "fisher_diag_batch"): _ENGINE,
+    ("parallel/sharding.py", "sharded_fisher_hsum"): _ENGINE,
+    ("parallel/sharding.py", "sharded_pose_scores"): _ENGINE,
+    ("parallel/sharding.py", "sharded_path_eig"): _ENGINE,
+    ("ops/fisher.py", "block_jtj"): _PROBES,
+    ("ops/fisher.py", "hutchinson_diag"): _PROBES,
+    ("models/object_slam.py", "object_path_scores"): _PROBES,
+    ("models/gaussian_state.py", "gs_densify"): (
+        "the jax.random key becomes the drawn split noise (ActiveMapper's "
+        "densify_draw), as torch cannot reproduce jax.random"),
+    ("models/predictors.py", "OccupancyPredictor.__init__"): (
+        "the jax.random key becomes a torch.Generator that draws the "
+        "flax-style initialisation; the module takes its device"),
+    ("planning/ddppo_net.py", "act"): (
+        "a DdppoNet nn.Module where JAX passes a parameter tree, and a "
+        "torch.Generator where JAX passes a key"),
+    ("parallel/distributed.py", "init_distributed"): (
+        "torch.distributed's init_method, world_size, rank and backend "
+        "replace jax.distributed.initialize's coordinator and process ids"),
+    ("parallel/mesh.py", "make_mesh"): (
+        "a torch.distributed process group where JAX takes a device list"),
+    ("parallel/distributed.py", "make_multihost_mesh"): (
+        "a torch.distributed process group where JAX takes a device list"),
+    ("envs/fake_sim.py", "FakeSim.__init__"): (
+        "device_obs (hand out jax arrays) becomes the torch device the "
+        "observations are made on"),
+    ("models/keyframes.py", "KeyframeBuffer.append"): (
+        "JAX passes the frames' device copies beside the host ones; the "
+        "port's buffer holds one copy and places it itself"),
+    ("models/gaussian_state.py", "adam_reset_slots"): (
+        "dest_safe (a JAX scatter index padded to stay in bounds) becomes "
+        "dest, torch indexing with no padding"),
+}
+
 
 def public_names(path: Path) -> set:
     """Public top-level functions and classes of a module, and the public
@@ -121,6 +171,29 @@ def public_names(path: Path) -> set:
     return out
 
 
+def positional_params(path: Path) -> dict:
+    """The positional parameter names of each public top-level function
+    and of each public method (and `__init__`) of the public classes."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if getattr(node, "name", "_").startswith("_"):
+            continue
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = _params(node)
+        elif isinstance(node, ast.ClassDef):
+            out.update({f"{node.name}.{m.name}": _params(m)
+                        for m in node.body
+                        if isinstance(m, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef))
+                        and (m.name == "__init__"
+                             or not m.name.startswith("_"))})
+    return out
+
+
+def _params(fn) -> list:
+    return [a.arg for a in fn.args.posonlyargs + fn.args.args]
+
+
 def _modules(pkg: Path) -> dict:
     return {str(p.relative_to(pkg)): public_names(p)
             for p in sorted(pkg.rglob("*.py"))}
@@ -128,6 +201,19 @@ def _modules(pkg: Path) -> dict:
 
 JAX = _modules(JAX_PKG)
 PORT = _modules(PORT_PKG)
+JAX_PARAMS = {str(p.relative_to(JAX_PKG)): positional_params(p)
+              for p in sorted(JAX_PKG.rglob("*.py"))}
+PORT_PARAMS = {str(p.relative_to(PORT_PKG)): positional_params(p)
+               for p in sorted(PORT_PKG.rglob("*.py"))}
+
+
+def _prefix_holds(module: str, name: str) -> bool:
+    jax = JAX_PARAMS[module][name]
+    return PORT_PARAMS[module][name][:len(jax)] == jax
+
+
+def _shared(module: str) -> list:
+    return sorted(set(JAX_PARAMS[module]) & set(PORT_PARAMS.get(module, {})))
 
 
 def _port_has(module: str, name: str) -> bool:
@@ -165,3 +251,56 @@ def test_nothing_is_blocked():
     assert BLOCKED == {}
     assert _port_has("engine/visualization.py", "write_trajectory_video")
     assert "write_trajectory_video" in JAX["engine/visualization.py"]
+
+
+@pytest.mark.parametrize("module", sorted(JAX_PARAMS))
+def test_every_shared_signature_takes_the_jax_order(module):
+    """A positional call binds the same parameter in both packages."""
+    wrong = {}
+    for name in _shared(module):
+        if (module, name) in SIGNATURES or _prefix_holds(module, name):
+            continue
+        wrong[name] = (JAX_PARAMS[module][name],
+                       PORT_PARAMS[module][name])
+    assert not wrong, (f"{module}: the JAX package's positional parameters "
+                       f"are not a prefix of the port's (JAX, port): {wrong}")
+
+
+@pytest.mark.parametrize("key", sorted(SIGNATURES),
+                         ids=lambda k: "::".join(k))
+def test_signature_entry_is_needed(key):
+    module, name = key
+    assert name in _shared(module), \
+        f"{key} is not a public name of both packages: drop the entry"
+    assert not _prefix_holds(module, name), \
+        f"{key} takes the JAX order now: drop the entry"
+    assert SIGNATURES[key]
+
+
+@pytest.mark.parametrize("module,name,jax_params", [
+    ("planning/planner.py", "AstarPlanner.__init__",
+     ["self", "slam_config", "eval_dir", "seed"]),
+    ("engine/driver.py", "ActiveMapper.__init__",
+     ["self", "cfg", "sim", "scene", "policy_name", "eval_dir", "seed",
+      "traj_actions", "object_scene", "dynamic_scene", "known_env_points",
+      "dino_gate", "dino_weights", "scene_id"]),
+    ("planning/planner.py", "AstarPlanner.global_planning",
+     ["self", "pose_evaluation_fn", "gaussian_points", "goal_proposal_fn",
+      "expansion", "visualize", "agent_pose", "last_goal", "slam",
+      "defer_scores"]),
+    ("planning/planner.py", "AstarPlanner.global_planning_frontier",
+     ["self", "expansion", "visualize", "agent_pose"]),
+    ("planning/planner.py", "AstarPlanner.global_object_planning",
+     ["self", "pose_evaluation_fn", "gaussian_points",
+      "gaussian_points_scene", "expansion", "visualize", "agent_pose",
+      "criterion"]),
+    ("planning/planner.py", "AstarPlanner.update_occ_map",
+     ["self", "depth", "c2w", "t", "downsample"]),
+    ("utils/geometry.py", "normalize", ["v", "axis", "eps"]),
+])
+def test_repaired_signatures(module, name, jax_params):
+    """The seven signatures whose positional calls bound another
+    parameter in the port than in the JAX package."""
+    assert JAX_PARAMS[module][name] == jax_params
+    assert PORT_PARAMS[module][name][:len(jax_params)] == jax_params
+    assert (module, name) not in SIGNATURES
