@@ -133,7 +133,7 @@ from ..planning.planner import (AstarPlanner, LocalizationError,
                                 NoFrontierError, _host)
 from ..utils.cluster import ClusterStateManager, get_cluster_manager
 from ..utils.io import atomic_pickle, atomic_savez, valid_npz
-from ..utils.logging_utils import MetricsLogger, StepTimer
+from ..utils.logging_utils import MetricsLogger, StepTimer, span
 from ..utils.pointcloud import GlobalPointCloud, backproject_depth
 from .actions import action_planning, compile_actions, rollout_path_poses
 from .eval import (IncrementalReconMetric, MetricsRecorder,
@@ -234,7 +234,7 @@ class ActiveMapper:
         # manager unless one is given)
         self.cm = (cluster_manager if cluster_manager is not None
                    else get_cluster_manager())
-        self.timer = StepTimer()
+        self.timer = StepTimer(device=device)
         self.mlog = MetricsLogger(self.eval_dir, cfg.run_name,
                                   use_wandb=bool(cfg.use_wandb),
                                   enabled=self.writer)
@@ -426,7 +426,7 @@ class ActiveMapper:
             slam.prune_invisible()
         try:
             finish = planner.global_planning(
-                slam.pose_eval_async, slam.gaussian_points, None,
+                self._pose_eval_launch, slam.gaussian_points, None,
                 expansion=1, agent_pose=current_agent_pose[:3, 3],
                 defer_scores=True)
         except (LocalizationError, NoFrontierError):
@@ -434,6 +434,12 @@ class ActiveMapper:
         if finish is not None:
             self._plan_prep = (t, finish)
             self.plan_preps["made"] += 1
+
+    def _pose_eval_launch(self, poses, random_gaussian_params=None):
+        """slam.pose_eval_async under the span plan.global.launch (the K3
+        launches of the candidates' scores)."""
+        with span("plan.global.launch"):
+            return self.slam.pose_eval_async(poses, random_gaussian_params)
 
     def plan_best_path(self, current_agent_pose: np.ndarray, expansion: int,
                        t: int):
@@ -453,16 +459,20 @@ class ActiveMapper:
                 if prep is not None:
                     self.plan_preps["dropped"] += 1
                 if bool(self.cfg.explore.prune_invisible):
-                    slam.prune_invisible()
+                    with span("plan.global.prune"):
+                        slam.prune_invisible()
                 pose_fn = None if self.policy_name == "frontier" \
-                    else slam.pose_eval_async
-                finish = planner.global_planning(
-                    pose_fn,
-                    points if points is not None else slam.gaussian_points,
-                    None, expansion=expansion,
-                    agent_pose=current_agent_pose[:3, 3], defer_scores=True,
-                    visualize=(bool(self.cfg.policy.save_nav_images)
-                               and self.writer))
+                    else self._pose_eval_launch
+                with span("plan.global.candidates"):
+                    finish = planner.global_planning(
+                        pose_fn,
+                        points if points is not None
+                        else slam.gaussian_points,
+                        None, expansion=expansion,
+                        agent_pose=current_agent_pose[:3, 3],
+                        defer_scores=True,
+                        visualize=(bool(self.cfg.policy.save_nav_images)
+                                   and self.writer))
             gaussian_points = (points if points is not None
                                else slam.gaussian_points)
             if finish is None or isinstance(finish, tuple):

@@ -36,6 +36,7 @@ import torch
 from scipy.spatial import cKDTree
 
 from ..ops.image import calc_psnr, calc_ssim, ssim_map
+from ..utils.logging_utils import span
 from ..utils.precision import no_tf32
 
 logger = logging.getLogger(__name__)
@@ -204,30 +205,35 @@ def eval_navigation(slam, sim, scene, n_poses: int = 2000,
     marks the poses inside the explored region: rows then carry `seen`
     and the summary the `*_seen` means and `n_seen`.  With `out_dir`,
     also writes eval_psnr_map.png, the per-pose PSNR on the top-down
-    map."""
-    poses = uniform_eval_poses(scene, n_poses, cam_height, seed)
+    map.  The spans eval.poses, and per chunk eval.render (render.pose
+    a pose), eval.gt and eval.metrics, cover the chunks' host time."""
+    with span("eval.poses"):
+        poses = uniform_eval_poses(scene, n_poses, cam_height, seed)
     per_pose = []
     for i in range(0, n_poses, chunk):
         batch = poses[i:i + chunk]
-        out = slam.render_at_poses(batch)
+        with span("eval.render"):
+            out = slam.render_at_poses(batch)
         dev = out["render"].device
-        if hasattr(sim, "render_at_batch"):
-            gt_rgb, gt_depth = sim.render_at_batch(batch)
-        else:
-            gts = [sim.render_at(c2w) for c2w in batch]
-            gt_rgb = torch.stack([_as_tensor(g[0], dev) for g in gts])
-            gt_depth = torch.stack([_as_tensor(g[1], dev) for g in gts])
-        gt_rgb, gt_depth = gt_rgb.to(dev), gt_depth.to(dev)
-        mets = torch.stack(_batch_render_metrics(
-            out["render"], gt_rgb, out["depth"], gt_depth)).cpu().numpy()
-        rows = []
-        for col in mets.T:                # the JAX package's key order
-            m = dict(psnr=float(col[0]), ssim=float(col[1]),
-                     lpips_proxy=float(col[2]))
-            if len(col) == 5:
-                m["lpips"] = float(col[4])
-            m["depth_mae"] = float(col[3])
-            rows.append(m)
+        with span("eval.gt"):
+            if hasattr(sim, "render_at_batch"):
+                gt_rgb, gt_depth = sim.render_at_batch(batch)
+            else:
+                gts = [sim.render_at(c2w) for c2w in batch]
+                gt_rgb = torch.stack([_as_tensor(g[0], dev) for g in gts])
+                gt_depth = torch.stack([_as_tensor(g[1], dev) for g in gts])
+            gt_rgb, gt_depth = gt_rgb.to(dev), gt_depth.to(dev)
+        with span("eval.metrics"):
+            mets = torch.stack(_batch_render_metrics(
+                out["render"], gt_rgb, out["depth"], gt_depth)).cpu().numpy()
+            rows = []
+            for col in mets.T:            # the JAX package's key order
+                m = dict(psnr=float(col[0]), ssim=float(col[1]),
+                         lpips_proxy=float(col[2]))
+                if len(col) == 5:
+                    m["lpips"] = float(col[4])
+                m["depth_mae"] = float(col[3])
+                rows.append(m)
         for j, m in enumerate(rows):
             if not -1.0 <= m["ssim"] <= 1.001:
                 # SSIM outside its range means a degenerate input pair:

@@ -57,6 +57,7 @@ from ..ops.rasterize import RenderSettings, render, render_prebinned
 from ..utils.geometry import (invert_se3, quat_mult, quat_to_rotmat,
                               rotmat_to_quat)
 from ..utils.io import atomic_save_npy, atomic_savez
+from ..utils.logging_utils import count, span
 from .gaussian_state import (GaussianState, PARAM_KEYS, adam_init, adam_step,
                              add_gaussians, empty_state, grow_state,
                              gs_densify, prune_compact, state_from_numpy,
@@ -190,57 +191,70 @@ def _mapping_phase_impl(state: GaussianState, kf_colors, kf_depths, kf_w2cs,
     lrs = dict(means3D=mc.lr_means3D, rgb_colors=mc.lr_rgb,
                unnorm_rotations=mc.lr_rots, logit_opacities=mc.lr_logit_op,
                log_scales=mc.lr_log_scales)
-    params = {k: v.detach() for k, v in state.params().items()}
-    opt = adam_init(params)
-    active = state.active
+    # the spans map.bin, map.step (.loss, .grad, .adam) and map.compact
+    # cover the phase (utils/logging_utils.py)
+    with span("map.bin"):
+        params = {k: v.detach() for k, v in state.params().items()}
+        opt = adam_init(params)
+        active = state.active
 
-    by_pose: dict[bytes, object] = {}
-    frame_bins = []
-    for w2c_host, w2c in zip(kf_w2cs.cpu().numpy(), kf_w2cs):
-        key = w2c_host.tobytes()
-        if key not in by_pose:
-            by_pose[key] = _bin_frame(params, active, w2c, camera, settings)
-        frame_bins.append(by_pose[key])
-    bin_overflow = torch.stack([b.overflow for b in frame_bins]).sum()
+        by_pose: dict[bytes, object] = {}
+        frame_bins = []
+        for w2c_host, w2c in zip(kf_w2cs.cpu().numpy(), kf_w2cs):
+            key = w2c_host.tobytes()
+            if key not in by_pose:
+                by_pose[key] = _bin_frame(params, active, w2c, camera,
+                                          settings)
+            frame_bins.append(by_pose[key])
+        bin_overflow = torch.stack([b.overflow for b in frame_bins]).sum()
 
-    cap = state.capacity
-    ga = torch.zeros(cap, device=active.device)
-    dn = torch.zeros(cap, device=active.device)
+        cap = state.capacity
+        ga = torch.zeros(cap, device=active.device)
+        dn = torch.zeros(cap, device=active.device)
     losses = []
     for it, frames in enumerate(frame_choices):
-        leaves = {k: v.requires_grad_() for k, v in params.items()}
-        loss = torch.stack([
-            _mapping_loss(leaves, state.n_active, kf_w2cs[i], kf_colors[i],
-                          kf_depths[i], camera, settings, mc,
-                          bins=frame_bins[i])
-            for i in frames.tolist()]).mean()
-        grads = torch.autograd.grad(loss, [leaves[k] for k in PARAM_KEYS])
-        if axis is not None:
-            *grads, loss = axis.pmean_all(list(grads)
-                                          + [loss.detach().reshape(1)])
-            loss = loss[0]
-        grads = dict(zip(PARAM_KEYS, grads))
-        with torch.no_grad():
-            gnorm = torch.linalg.norm(grads["means3D"], dim=-1)
-            ga += gnorm
-            dn += (gnorm > 0).float()
-        params, opt = adam_step(opt, {k: v.detach() for k, v in
-                                      leaves.items()}, grads, lrs, eps=1e-15)
-        if (mc.prune_enabled and mc.prune_start <= it <= mc.prune_stop
-                and it % mc.prune_every == 0):
-            logit = params["logit_opacities"]
-            kill = active & (torch.sigmoid(logit[:, 0]) < mc.prune_thresh)
-            params["logit_opacities"] = torch.where(
-                kill[:, None], torch.full_like(logit, -1e10), logit)
-        losses.append(loss.detach())
+        with span("map.step"):
+            leaves = {k: v.requires_grad_() for k, v in params.items()}
+            with span("map.step.loss"):
+                loss = torch.stack([
+                    _mapping_loss(leaves, state.n_active, kf_w2cs[i],
+                                  kf_colors[i], kf_depths[i], camera,
+                                  settings, mc, bins=frame_bins[i])
+                    for i in frames.tolist()]).mean()
+            with span("map.step.grad"):
+                grads = torch.autograd.grad(loss, [leaves[k]
+                                                   for k in PARAM_KEYS])
+                if axis is not None:
+                    *grads, loss = axis.pmean_all(
+                        list(grads) + [loss.detach().reshape(1)])
+                    loss = loss[0]
+            grads = dict(zip(PARAM_KEYS, grads))
+            with span("map.step.adam"):
+                with torch.no_grad():
+                    gnorm = torch.linalg.norm(grads["means3D"], dim=-1)
+                    ga += gnorm
+                    dn += (gnorm > 0).float()
+                params, opt = adam_step(opt, {k: v.detach() for k, v in
+                                              leaves.items()}, grads, lrs,
+                                        eps=1e-15)
+                if (mc.prune_enabled and mc.prune_start <= it <= mc.prune_stop
+                        and it % mc.prune_every == 0):
+                    logit = params["logit_opacities"]
+                    kill = active & (torch.sigmoid(logit[:, 0])
+                                     < mc.prune_thresh)
+                    params["logit_opacities"] = torch.where(
+                        kill[:, None], torch.full_like(logit, -1e10), logit)
+            losses.append(loss.detach())
 
-    new_state = state.replace_params(params)
-    if mc.prune_enabled:
-        # one compaction releases exactly the soft-killed slots
-        keep = params["logit_opacities"][:, 0] > -1e9
-        new_state, order = prune_compact(new_state, keep)
-        ga, dn = ga[order], dn[order]
-    return new_state, torch.stack(losses), ga, dn, bin_overflow
+    with span("map.compact"):
+        new_state = state.replace_params(params)
+        if mc.prune_enabled:
+            # one compaction releases exactly the soft-killed slots
+            keep = params["logit_opacities"][:, 0] > -1e9
+            new_state, order = prune_compact(new_state, keep)
+            ga, dn = ga[order], dn[order]
+        losses = torch.stack(losses)
+    return new_state, losses, ga, dn, bin_overflow
 
 
 def _median(x):
@@ -414,16 +428,17 @@ def _densify(state: GaussianState, color, depth, w2c, time_idx,
 
 def _render_pose(state: GaussianState, w2c, camera: Camera,
                  settings: RenderSettings, white_bg: bool, mask=None):
-    """Render [rgb, z, z²] at a pose; `mask` (capacity,) bool hides
-    Gaussians (opacity 0)."""
-    params = state.params()
-    if mask is not None:
-        params = dict(params)
-        params["logit_opacities"] = torch.where(
-            mask[:, None], params["logit_opacities"],
-            torch.full_like(params["logit_opacities"], float("-inf")))
-    return _render_rgbd(camera, settings, params, state.n_active, w2c,
-                        bg_white=white_bg, with_depth_sq=True)
+    """Render [rgb, z, z²] at a pose (the span render.pose); `mask`
+    (capacity,) bool hides Gaussians (opacity 0)."""
+    with span("render.pose"):
+        params = state.params()
+        if mask is not None:
+            params = dict(params)
+            params["logit_opacities"] = torch.where(
+                mask[:, None], params["logit_opacities"],
+                torch.full_like(params["logit_opacities"], float("-inf")))
+        return _render_rgbd(camera, settings, params, state.n_active, w2c,
+                            bg_white=white_bg, with_depth_sq=True)
 
 
 def _render_pose_batch(state: GaussianState, w2cs, camera: Camera,
@@ -848,66 +863,81 @@ class GaussianSLAM:
 
     def _mapping_event(self, color, depth, w2c, time_idx):
         """Densify, select the keyframe window, run the Adam phase, and
-        with use_gaussian_splatting_densification clone and split."""
+        with use_gaussian_splatting_densification clone and split: the
+        span map.event (with its device time) and its children, and the
+        counters map.capacity, map.steps and map.n_active of the event's
+        start (the 0-d device tensor unless the count is cached: no
+        host read)."""
         cfgc = self.cfg
-        self._flush_pending_bump()
-        if bool(cfgc.mapping.add_new_gaussians) and time_idx > 0:
-            # the previous event's guard, checked before this densify
-            self._drain_densify_guard()
-            ds = self.mc.downsample_pcd
-            self._ensure_capacity(
-                (self.camera.height // ds) * (self.camera.width // ds))
-            self.state, dropped, _added, overflow = _densify(
-                self.state, color, depth, self._w2c(w2c), float(time_idx),
-                self.camera, self.settings, self.mc)
-            self._densify_guard = (dropped, overflow)
-
-        # window: overlapping keyframes, the latest keyframe, this frame
-        num_kf = int(cfgc.mapping_window_size) - 2
-        host_depth = depth.detach().cpu().numpy()
-        selected = select_keyframes_overlap(
-            host_depth[None], w2c, self.intrinsics, self.keyframes, num_kf,
-            rng=self.rng)
-        if len(self.keyframes) > 0:
-            selected.append(len(self.keyframes) - 1)
-        dev = self.device
-        win_colors = [self.keyframes.color_dev(i, dev) for i in selected] \
-            + [color]
-        win_depths = [self.keyframes.depth_dev(i, dev) for i in selected] \
-            + [depth]
-        win_w2cs = [self.keyframes.w2cs[i] for i in selected] + [w2c]
-        b = len(win_colors)
-        # padded to a fixed size with the current frame, as the JAX
-        # package does (the draws below depend on b and b_max)
-        b_max = int(cfgc.mapping_window_size)
-        while len(win_colors) < b_max:
-            win_colors.append(win_colors[-1])
-            win_depths.append(win_depths[-1])
-            win_w2cs.append(win_w2cs[-1])
-        win_colors, win_depths = win_colors[:b_max], win_depths[:b_max]
-        win_w2cs = win_w2cs[:b_max]
         n_steps = max(self.mc.num_iters // self.mc.frames_per_iter, 1)
-        choices = self.rng.integers(
-            0, min(b, b_max), size=(n_steps, self.mc.frames_per_iter))
-        if self.mesh is not None:
-            from ..parallel.sharding import sharded_mapping_phase
-            phase = sharded_mapping_phase(self.mesh, self.camera,
-                                          self.settings, self.mc)
-            self.sharded_calls["mapping"] += 1
-        else:
-            phase = functools.partial(_mapping_phase_impl, camera=self.camera,
-                                      settings=self.settings, mc=self.mc)
-        state, losses, ga, dn, overflow = phase(
-            self.state, torch.stack(win_colors), torch.stack(win_depths),
-            self._w2c(np.stack(win_w2cs)), choices)
-        self.state = state
-        self.last_losses = losses
-        if bool(cfgc.mapping.use_gaussian_splatting_densification):
-            self._gs_densify(ga, dn, time_idx)
-        # binning truncation over the window's frames, read at the next
-        # event so that this one is not waited for
-        self._pending_bump = (overflow, b_max)
-        self._param_version += 1
+        with span("map.event", device=self.device):
+            cached = getattr(self, "_n_active_cache", None)
+            count("map.n_active", cached[1] if cached is not None
+                  and cached[0] == self._state_epoch else self.state.n_active)
+            count("map.capacity", self.state.capacity)
+            count("map.steps", n_steps)
+            with span("map.densify"):
+                self._flush_pending_bump()
+                if bool(cfgc.mapping.add_new_gaussians) and time_idx > 0:
+                    # the previous event's guard, checked before this
+                    # densify
+                    self._drain_densify_guard()
+                    ds = self.mc.downsample_pcd
+                    self._ensure_capacity(
+                        (self.camera.height // ds) * (self.camera.width // ds))
+                    self.state, dropped, _added, overflow = _densify(
+                        self.state, color, depth, self._w2c(w2c),
+                        float(time_idx), self.camera, self.settings, self.mc)
+                    self._densify_guard = (dropped, overflow)
+
+            with span("map.window"):
+                # overlapping keyframes, the latest keyframe, this frame
+                num_kf = int(cfgc.mapping_window_size) - 2
+                host_depth = depth.detach().cpu().numpy()
+                selected = select_keyframes_overlap(
+                    host_depth[None], w2c, self.intrinsics, self.keyframes,
+                    num_kf, rng=self.rng)
+                if len(self.keyframes) > 0:
+                    selected.append(len(self.keyframes) - 1)
+                dev = self.device
+                win_colors = [self.keyframes.color_dev(i, dev)
+                              for i in selected] + [color]
+                win_depths = [self.keyframes.depth_dev(i, dev)
+                              for i in selected] + [depth]
+                win_w2cs = [self.keyframes.w2cs[i] for i in selected] + [w2c]
+                b = len(win_colors)
+                # padded to a fixed size with the current frame, as the JAX
+                # package does (the draws below depend on b and b_max)
+                b_max = int(cfgc.mapping_window_size)
+                while len(win_colors) < b_max:
+                    win_colors.append(win_colors[-1])
+                    win_depths.append(win_depths[-1])
+                    win_w2cs.append(win_w2cs[-1])
+                choices = self.rng.integers(
+                    0, min(b, b_max), size=(n_steps, self.mc.frames_per_iter))
+                if self.mesh is not None:
+                    from ..parallel.sharding import sharded_mapping_phase
+                    phase = sharded_mapping_phase(self.mesh, self.camera,
+                                                  self.settings, self.mc)
+                    self.sharded_calls["mapping"] += 1
+                else:
+                    phase = functools.partial(
+                        _mapping_phase_impl, camera=self.camera,
+                        settings=self.settings, mc=self.mc)
+                window = (torch.stack(win_colors[:b_max]),
+                          torch.stack(win_depths[:b_max]),
+                          self._w2c(np.stack(win_w2cs[:b_max])))
+            state, losses, ga, dn, overflow = phase(self.state, *window,
+                                                    choices)
+            self.state = state
+            self.last_losses = losses
+            if bool(cfgc.mapping.use_gaussian_splatting_densification):
+                with span("map.gs_densify"):
+                    self._gs_densify(ga, dn, time_idx)
+            # binning truncation over the window's frames, read at the next
+            # event so that this one is not waited for
+            self._pending_bump = (overflow, b_max)
+            self._param_version += 1
 
     def render_at_pose(self, c2w, white_bg: bool = False, mask=None):
         w2c = np.linalg.inv(np.asarray(c2w, np.float32))

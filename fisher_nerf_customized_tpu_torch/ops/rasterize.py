@@ -10,6 +10,10 @@ its XLA blend never stops, so the two differ by at most that tail.  The
 gradient reaches the Gaussian parameters by autograd through the row
 gather, preprocess and the caller's own transforms, the chain JAX's AD
 runs through the same functions around its custom VJP.
+
+A render's stretches are spans of utils/logging_utils.py's store:
+render.preprocess, render.bin (`render` only) and render.blend (the pack,
+the K1 launch and the tile-to-image), under whichever span calls them.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from .camera import Camera
 from .cuda_blend import cuda_blend
 from .cuda_blend_bwd import cuda_blend_bwd
 from .projection import preprocess
+from ..utils.logging_utils import span
 
 
 class RenderSettings(NamedTuple):
@@ -139,8 +144,10 @@ def render_prebinned(camera: Camera, means_cam, scales, quats, opacities,
                      settings: RenderSettings = RenderSettings()):
     """Render against a frozen tile-binning table (differentiable in every
     input but the table)."""
-    prep = preprocess(means_cam, scales, quats, camera)
-    return _blend(camera, settings, prep, bins, opacities, colors, bg)
+    with span("render.preprocess"):
+        prep = preprocess(means_cam, scales, quats, camera)
+    with span("render.blend"):
+        return _blend(camera, settings, prep, bins, opacities, colors, bg)
 
 
 def render(camera: Camera, means_cam, scales, quats, opacities, colors,
@@ -155,11 +162,14 @@ def render(camera: Camera, means_cam, scales, quats, opacities, colors,
     (H, W) median depth, final_t (H, W), radii (N,), overflow () count of
     Gaussian-tile entries truncated by the per-tile capacity."""
     st = settings
-    prep = preprocess(means_cam, scales, quats, camera, active=active)
-    bins = tile_bin(prep.mean2d.detach(), prep.radius.detach(),
-                    prep.depth.detach(), prep.valid, camera.width,
-                    camera.height, st.tile_size, st.max_per_tile)
-    return _blend(camera, st, prep, bins, opacities, colors, bg)
+    with span("render.preprocess"):
+        prep = preprocess(means_cam, scales, quats, camera, active=active)
+    with span("render.bin"):
+        bins = tile_bin(prep.mean2d.detach(), prep.radius.detach(),
+                        prep.depth.detach(), prep.valid, camera.width,
+                        camera.height, st.tile_size, st.max_per_tile)
+    with span("render.blend"):
+        return _blend(camera, st, prep, bins, opacities, colors, bg)
 
 
 def render_sh(camera: Camera, means_world, w2c, scales, quats, opacities,
