@@ -454,6 +454,7 @@ def _tracking_phase(state: GaussianState, cam_q0, cam_t0, gt_color,
     lr_trans), keeping the best candidate as the reference does: the loss
     is taken at the pose before the step, and when it is the lowest so
     far the pose after the step is kept.  No host read inside the loop.
+    Each iteration is the span track.step (children .loss, .grad, .adam).
     Returns (best_q, best_t, best_loss, the last iteration's depth_l,
     the losses (num_iters,))."""
     params = state.params()
@@ -464,26 +465,30 @@ def _tracking_phase(state: GaussianState, cam_q0, cam_t0, gt_color,
     best_q, best_t = q, t
     losses = []
     for k in range(1, tc.num_iters + 1):
-        q, t = q.requires_grad_(), t.requires_grad_()
-        loss, depth_l = _tracking_loss(q, t, params, state.n_active,
-                                       gt_color, gt_depth, camera, settings,
-                                       tc)
-        gq, gt_ = torch.autograd.grad(loss, [q, t])
-        with torch.no_grad():
-            kk = torch.tensor(float(k))
-            bc1 = float(1.0 - torch.tensor(0.9) ** kk)
-            bc2 = float(1.0 - torch.tensor(0.999) ** kk)
-            mq = 0.9 * mq + 0.1 * gq
-            vq = 0.999 * vq + 0.001 * gq * gq
-            q = q - tc.lr_rot * (mq / bc1) / (torch.sqrt(vq / bc2) + 1e-8)
-            mt = 0.9 * mt + 0.1 * gt_
-            vt = 0.999 * vt + 0.001 * gt_ * gt_
-            t = t - tc.lr_trans * (mt / bc1) / (torch.sqrt(vt / bc2) + 1e-8)
-            loss = loss.detach()
-            better = loss < best_loss
-            best_loss = torch.where(better, loss, best_loss)
-            best_q = torch.where(better, q, best_q)
-            best_t = torch.where(better, t, best_t)
+        with span("track.step"):
+            q, t = q.requires_grad_(), t.requires_grad_()
+            with span("track.step.loss"):
+                loss, depth_l = _tracking_loss(q, t, params, state.n_active,
+                                               gt_color, gt_depth, camera,
+                                               settings, tc)
+            with span("track.step.grad"):
+                gq, gt_ = torch.autograd.grad(loss, [q, t])
+            with span("track.step.adam"), torch.no_grad():
+                kk = torch.tensor(float(k))
+                bc1 = float(1.0 - torch.tensor(0.9) ** kk)
+                bc2 = float(1.0 - torch.tensor(0.999) ** kk)
+                mq = 0.9 * mq + 0.1 * gq
+                vq = 0.999 * vq + 0.001 * gq * gq
+                q = q - tc.lr_rot * (mq / bc1) / (torch.sqrt(vq / bc2) + 1e-8)
+                mt = 0.9 * mt + 0.1 * gt_
+                vt = 0.999 * vt + 0.001 * gt_ * gt_
+                t = t - tc.lr_trans * (mt / bc1) / (torch.sqrt(vt / bc2)
+                                                    + 1e-8)
+                loss = loss.detach()
+                better = loss < best_loss
+                best_loss = torch.where(better, loss, best_loss)
+                best_q = torch.where(better, q, best_q)
+                best_t = torch.where(better, t, best_t)
         losses.append(loss)
     return best_q, best_t, best_loss, depth_l.detach(), torch.stack(losses)
 
@@ -898,32 +903,42 @@ class GaussianSLAM:
         guess (with forward_prop and two poses; else the last pose), one
         tracking phase, and when its last depth loss is at
         depth_loss_thres or above (with use_depth_loss_thres) a second one
-        from its best pose with twice the steps, whose best is kept."""
+        from its best pose with twice the steps, whose best is kept.  The
+        span track.frame (with its device time) holds a span track.phase
+        a phase; the counters track.iters (the iterations run) and
+        track.doubled (1 when the second phase ran) are written once."""
         dev = self.device
-        prev = torch.as_tensor(self.poses_w2c[-1], dtype=torch.float32,
-                               device=dev)
-        q0 = rotmat_to_quat(prev[:3, :3])
-        t0 = prev[:3, 3]
-        if self.forward_prop and len(self.poses_w2c) >= 2:
-            prev2 = torch.as_tensor(self.poses_w2c[-2], dtype=torch.float32,
-                                    device=dev)
-            q_prev2 = rotmat_to_quat(prev2[:3, :3])
-            conj = q_prev2 * torch.tensor([1.0, -1.0, -1.0, -1.0],
-                                          device=dev)
-            q0 = quat_mult(q0, quat_mult(conj, q0))
-            t0 = t0 + (t0 - prev2[:3, 3])
-        best_q, best_t, _loss, depth_l, _losses = _tracking_phase(
-            self.state, q0, t0, color, depth, self.camera, self.settings,
-            self.tc)
-        if (self.tc.use_depth_loss_thres
-                and float(depth_l) >= self.tc.depth_loss_thres):
-            best_q, best_t, _loss, _dl, _losses = _tracking_phase(
-                self.state, best_q, best_t, color, depth, self.camera,
-                self.settings,
-                self.tc._replace(num_iters=2 * self.tc.num_iters))
-        w2c = np.eye(4, dtype=np.float32)
-        w2c[:3, :3] = quat_to_rotmat(best_q).cpu().numpy()
-        w2c[:3, 3] = best_t.cpu().numpy()
+        with span("track.frame", device=dev):
+            prev = torch.as_tensor(self.poses_w2c[-1], dtype=torch.float32,
+                                   device=dev)
+            q0 = rotmat_to_quat(prev[:3, :3])
+            t0 = prev[:3, 3]
+            if self.forward_prop and len(self.poses_w2c) >= 2:
+                prev2 = torch.as_tensor(self.poses_w2c[-2],
+                                        dtype=torch.float32, device=dev)
+                q_prev2 = rotmat_to_quat(prev2[:3, :3])
+                conj = q_prev2 * torch.tensor([1.0, -1.0, -1.0, -1.0],
+                                              device=dev)
+                q0 = quat_mult(q0, quat_mult(conj, q0))
+                t0 = t0 + (t0 - prev2[:3, 3])
+            with span("track.phase"):
+                best_q, best_t, _loss, depth_l, _losses = _tracking_phase(
+                    self.state, q0, t0, color, depth, self.camera,
+                    self.settings, self.tc)
+            iters, doubled = self.tc.num_iters, 0
+            if (self.tc.use_depth_loss_thres
+                    and float(depth_l) >= self.tc.depth_loss_thres):
+                tc2 = self.tc._replace(num_iters=2 * self.tc.num_iters)
+                with span("track.phase"):
+                    best_q, best_t, _loss, _dl, _losses = _tracking_phase(
+                        self.state, best_q, best_t, color, depth,
+                        self.camera, self.settings, tc2)
+                iters, doubled = iters + tc2.num_iters, 1
+            count("track.iters", iters)
+            count("track.doubled", doubled)
+            w2c = np.eye(4, dtype=np.float32)
+            w2c[:3, :3] = quat_to_rotmat(best_q).cpu().numpy()
+            w2c[:3, 3] = best_t.cpu().numpy()
         return w2c
 
     def densify_draw(self, time_idx: int, n_children: int,

@@ -28,6 +28,12 @@ on the profiler's clock.  The spans of the port:
     map.capture      the CUDA graph capture of one step (on a CUDA device)
     map.compact      prune_compact
     map.gs_densify   the gradient clone / split
+  track.frame        GaussianSLAM._track_pose (with device time)
+    track.phase      one _tracking_phase (a second with the doubled steps)
+      track.step     one Adam iteration on the pose, with children
+        track.step.loss   the render and the masked SUM loss
+        track.step.grad   torch.autograd.grad to (q, t) (K2, projection)
+        track.step.adam   the Adam update and the best-pose keep
   render.preprocess, render.bin, render.blend   ops/rasterize.py
   render.pose        one pose's render (models/slam.py::_render_pose)
   eval.poses, eval.render, eval.gt, eval.metrics
@@ -38,7 +44,9 @@ on the profiler's clock.  The spans of the port:
 and the counters map.capacity, map.steps and map.n_active (the live
 slots at the event's start, kept as the device's 0-d tensor and read
 only when the record is read), and map.graph_steps (the event's steps
-replayed from a CUDA graph, at its end)."""
+replayed from a CUDA graph, at its end), and once a tracked frame
+track.iters (the Adam iterations it ran) and track.doubled (1 when its
+second phase ran, else 0)."""
 from __future__ import annotations
 
 import itertools
